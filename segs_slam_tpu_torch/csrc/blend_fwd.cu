@@ -32,11 +32,11 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-// Rows of the sorted feature array [kCols, nk].
-constexpr int kX = 0, kY = 1, kCa = 2, kCb = 3, kCc = 4, kOp = 5, kR = 6,
-              kG = 7, kB = 8, kD = 9, kCols = 10;
+using namespace segs;
 
 __global__ void blend_fwd_kernel(const float* __restrict__ feats,
                                  long long nk,
@@ -74,15 +74,14 @@ __global__ void blend_fwd_kernel(const float* __restrict__ feats,
     __syncthreads();
     const int n = min(npix, stop - base);
     for (int j = 0; j < n && !done; ++j) {
-      const float dx = batch[kX * npix + j] - pix_x;
-      const float dy = batch[kY * npix + j] - pix_y;
-      const float power =
-          -0.5f * (batch[kCa * npix + j] * dx * dx +
-                   batch[kCc * npix + j] * dy * dy) -
-          batch[kCb * npix + j] * dx * dy;
+      const float dx = __fsub_rn(batch[kX * npix + j], pix_x);
+      const float dy = __fsub_rn(batch[kY * npix + j], pix_y);
+      const float power = conic_power(batch[kCa * npix + j],
+                                      batch[kCb * npix + j],
+                                      batch[kCc * npix + j], dx, dy);
       if (power > 0.0f) continue;
-      const float alpha =
-          fminf(alpha_clamp, batch[kOp * npix + j] * expf(power));
+      const float alpha = fminf(
+          alpha_clamp, opacity_gaussian(batch[kOp * npix + j], power));
       if (alpha < alpha_min) continue;
       const float test_t = T * (1.0f - alpha);
       if (test_t < t_min) {

@@ -5,10 +5,17 @@ arrays under flattened names: `anchors.<field>` for the AnchorState fields
 and `decoders.<path>` for the decoder parameter tree, e.g.
 `decoders.opacity.l1.w`. JAX stores a Linear's `w` as (fan_in, fan_out);
 nn.Linear stores (out, in), so `w` is transposed on the way in.
+
+A whole train state (map, decoders, Adam moments, densify statistics, step)
+converts both ways with train_state_from_jax / train_state_to_numpy, so
+that the JAX package and the port can start from one state and be compared
+leaf by leaf.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +24,8 @@ import torch
 from segs_slam_tpu_torch.models.anchors import AnchorState
 from segs_slam_tpu_torch.models.config import ModelConfig
 from segs_slam_tpu_torch.models.decoders import Decoders
+from segs_slam_tpu_torch.train.optimizer import AdamState
+from segs_slam_tpu_torch.train.step import DensifyStats, TrainState
 
 ANCHOR_FIELDS = ("anchor", "offset", "feat", "scaling", "rotation", "opacity",
                  "active")
@@ -52,6 +61,41 @@ def _config_from_shapes(params: dict[str, np.ndarray]) -> ModelConfig:
     )
 
 
+def _torch_leaf(name: str, arr) -> tuple[str, torch.Tensor]:
+    """A JAX decoder leaf (flat name) as the nn.Module parameter name and
+    layout: `x.w` (in, out) -> `x.weight` (out, in), `x.b` -> `x.bias`."""
+    path, _, leaf = name.rpartition(".")
+    arr = np.asarray(arr, np.float32)
+    if leaf == "w":
+        return f"{path}.weight", torch.from_numpy(np.ascontiguousarray(arr.T))
+    if leaf == "b":
+        return f"{path}.bias", torch.from_numpy(arr.copy())
+    return name, torch.from_numpy(arr.copy())
+
+
+def _jax_leaf(name: str, t: torch.Tensor) -> tuple[str, np.ndarray]:
+    """The inverse of _torch_leaf."""
+    path, _, leaf = name.rpartition(".")
+    arr = t.detach().cpu().numpy()
+    if leaf == "weight":
+        return f"{path}.w", np.ascontiguousarray(arr.T)
+    if leaf == "bias":
+        return f"{path}.b", arr
+    return name, arr
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"opacity.l1.w": a} -> {"opacity": {"l1": {"w": a}}}."""
+    tree = {}
+    for name, val in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return tree
+
+
 def decoders_from_jax(params: dict[str, np.ndarray],
                       device=None) -> Decoders:
     """Decoders holding the given JAX decoder parameters (flat names, see
@@ -59,28 +103,19 @@ def decoders_from_jax(params: dict[str, np.ndarray],
     `config` carries it (capacity left at its default)."""
     dec = Decoders(_config_from_shapes(params),
                    generator=torch.Generator().manual_seed(0))
-    state = {}
-    for name, arr in params.items():
-        path, _, leaf = name.rpartition(".")
-        if leaf == "w":
-            state[f"{path}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(arr, np.float32).T))
-        elif leaf == "b":
-            state[f"{path}.bias"] = torch.from_numpy(
-                np.asarray(arr, np.float32))
-        else:
-            state[name] = torch.from_numpy(np.asarray(arr, np.float32))
-    dec.load_state_dict(state, strict=True)
+    dec.load_state_dict(dict(_torch_leaf(n, a) for n, a in params.items()),
+                        strict=True)
     return dec.to(device)
 
 
 def anchors_from_numpy(d: dict[str, np.ndarray], device=None) -> AnchorState:
-    """AnchorState from numpy arrays named by its fields."""
+    """AnchorState from numpy arrays named by its fields (copied: the state
+    is updated in place by training)."""
     fields = {}
     for name in ANCHOR_FIELDS:
         dtype = np.bool_ if name == "active" else np.float32
-        fields[name] = torch.as_tensor(np.asarray(d[name], dtype),
-                                       device=device)
+        fields[name] = torch.tensor(np.asarray(d[name], dtype),
+                                    device=device)
     return AnchorState(**fields)
 
 
@@ -102,3 +137,74 @@ def load_map(path, device=None) -> tuple[AnchorState, Decoders]:
                     if k.startswith("decoders.")}
     return (anchors_from_numpy(anchors, device),
             decoders_from_jax(decoders, device))
+
+
+def _fields(x) -> dict:
+    """A mapping, or a NamedTuple (the JAX package's state classes), as a
+    dict of its fields."""
+    return dict(x) if isinstance(x, Mapping) else x._asdict()
+
+
+def train_state_from_jax(tree, device=None) -> TrainState:
+    """The port's TrainState from the JAX package's TrainState with numpy
+    leaves (`jax.tree.map(np.asarray, ts)`) or the same layout as nested
+    dicts (what train_state_to_numpy returns): anchors, decoders, the Adam
+    step and moments (transposed like the weights), DensifyStats and the
+    step. A state with pose rows raises: pose optimisation is not ported."""
+    t = _fields(tree)
+    if np.asarray(t["pose"]).shape[0]:
+        raise ValueError("the state has pose rows; in-step pose "
+                         "optimisation is not ported")
+    adam = _fields(t["adam"])
+
+    def group(tree_):
+        g = _fields(tree_)
+        return {
+            "anchors": {k: torch.tensor(np.asarray(v, np.float32),
+                                        device=device)
+                        for k, v in _fields(g["anchors"]).items()},
+            "decoders": {n: x.to(device) for n, x in (
+                _torch_leaf(name, a)
+                for name, a in flatten_params(g["decoders"]).items())},
+        }
+
+    stats = _fields(t["stats"])
+    return TrainState(
+        anchors=anchors_from_numpy(_fields(t["anchors"]), device),
+        decoders=decoders_from_jax(flatten_params(t["decoders"]), device),
+        adam=AdamState(step=int(adam["step"]), mu=group(adam["mu"]),
+                       nu=group(adam["nu"])),
+        stats=DensifyStats(**{
+            k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in stats.items()}),
+        step=int(t["step"]),
+    )
+
+
+def train_state_to_numpy(ts: TrainState) -> dict:
+    """The inverse of train_state_from_jax: nested dicts of numpy arrays in
+    the JAX TrainState's layout and names (decoder weights (in, out)), with
+    empty pose rows."""
+    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    no_pose = np.zeros((0, 6), np.float32)
+
+    def group(g):
+        return {
+            "anchors": {k: np_(v) for k, v in g["anchors"].items()},
+            "decoders": _unflatten(dict(
+                _jax_leaf(n, x) for n, x in g["decoders"].items())),
+            "pose": no_pose,
+        }
+
+    return {
+        "anchors": {f: np_(getattr(ts.anchors, f)) for f in ANCHOR_FIELDS},
+        "decoders": _unflatten(dict(
+            _jax_leaf(n, x) for n, x in ts.decoders.named_parameters())),
+        "adam": {"step": np.int32(ts.adam.step), "mu": group(ts.adam.mu),
+                 "nu": group(ts.adam.nu)},
+        "stats": {f.name: np_(getattr(ts.stats, f.name))
+                  for f in dataclasses.fields(ts.stats)},
+        "step": np.int32(ts.step),
+        "pose": no_pose,
+        "pose_ema": no_pose,
+    }

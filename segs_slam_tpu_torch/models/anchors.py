@@ -48,6 +48,17 @@ class AnchorState:
     def num_active(self) -> torch.Tensor:
         return self.active.sum(dtype=torch.int32)
 
+    def params(self) -> dict:
+        """The trainable subset, mirroring the reference's anchor param
+        groups (trainingSetup, src/gaussian_model.cpp:636-652)."""
+        return {name: getattr(self, name) for name in PARAM_FIELDS}
+
+    def replace_params(self, p: dict) -> "AnchorState":
+        return dataclasses.replace(self, **{n: p[n] for n in PARAM_FIELDS})
+
+
+PARAM_FIELDS = ("anchor", "offset", "feat", "scaling", "rotation", "opacity")
+
 
 def empty_state(config: ModelConfig, device=None) -> AnchorState:
     cap, k, f = config.capacity, config.n_offsets, config.feat_dim

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into a shared library that is loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Libraries are built on first use into
 `build/segs_slam_tpu_torch/` at the root of the checkout, named by a hash of
-the source and flags so that a stale build is never loaded.
+the source, the shared headers (`csrc/*.cuh`) and the flags so that a stale
+build is never loaded.
 """
 
 from __future__ import annotations
@@ -42,8 +43,10 @@ def build_library(name: str) -> Path:
     The compiler's output, including ptxas register and shared-memory usage,
     is kept beside it as <lib>.log."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

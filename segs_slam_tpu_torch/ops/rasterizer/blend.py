@@ -1,17 +1,16 @@
-"""Tile blend forward: kernel K1 and its plain PyTorch version.
+"""Tile blend: kernels K1 (forward) and K2 (backward), their plain PyTorch
+versions, and the autograd.Function around the whole binned pipeline.
 
-Port of the forward half of segs_slam_tpu/ops/rasterizer/blend.py
-(`binned_blend` / `_binned_blend_fwd` around the Pallas kernel
-`_fwd_kernel`). The kernel is hand-written CUDA for Hopper in
-`csrc/blend_fwd.cu`; `blend_forward_reference` computes the same function in
-plain torch. `blend_forward` launches the kernel for CUDA tensors and takes
-the plain version only for tensors on the CPU.
+Port of segs_slam_tpu/ops/rasterizer/blend.py (`binned_blend`, a custom VJP
+over compaction + sort + the Pallas kernels `_fwd_kernel` / `_bwd_kernel`).
+The kernels are hand-written CUDA for Hopper in `csrc/blend_fwd.cu` and
+`csrc/blend_bwd.cu`; `blend_forward_reference` and `blend_backward_reference`
+compute the same functions in plain torch. `blend_forward` /
+`blend_backward` launch the kernels for CUDA tensors and take the plain
+versions only for tensors on the CPU.
 
-The blend is forward-only for now: the backward kernel (K2) and the
-autograd.Function around both come with the training slice, so
-`binned_blend` refuses inputs that require grad while grad mode is on.
-
-Sorted feature rows (the [10, NK] array):
+Sorted feature rows (the [10, NK] array), and the rows of K2's per-instance
+gradient array:
   0: mean2d.x  1: mean2d.y  2: conic.a  3: conic.b  4: conic.c
   5: opacity   6: r  7: g  8: b  9: depth
 """
@@ -33,9 +32,55 @@ from segs_slam_tpu_torch.ops.rasterizer.preprocess import RasterConfig
 NFEAT = NPAY + 1
 F_X, F_Y, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_D = range(NFEAT)
 
-# Plain version: tiles are processed in groups of at most this many
+# Plain versions: tiles are processed in groups of at most this many
 # (tile, pixel, instance) elements per temporary.
 _REF_GROUP_ELEMS = 1 << 24
+
+
+def _tile_groups(counts: list[int], npix: int):
+    """Consecutive tile groups [t0, t1) whose padded [t1 - t0, npix, longest]
+    temporaries stay within _REF_GROUP_ELEMS; yields (t0, t1, longest) for
+    the groups that hold any instance."""
+    nt = len(counts)
+    t0 = 0
+    while t0 < nt:
+        t1, longest = t0 + 1, counts[t0]
+        while t1 < nt and (t1 - t0 + 1) * npix * max(longest, counts[t1]) \
+                <= _REF_GROUP_ELEMS:
+            longest = max(longest, counts[t1])
+            t1 += 1
+        if longest > 0:
+            yield t0, t1, longest
+        t0 = t1
+
+
+def _group_alpha(feats, tile_start, counts, t0, t1, length, tiles_x,
+                 config: RasterConfig):
+    """Per-(tile, pixel, instance) quantities of tiles [t0, t1), padded to
+    `length` instances: (idx [B, L] columns into feats, inside [B, L],
+    f [10, B, L], dx, dy [B, P, L] = mean2d - pixel, opg = op * G unclamped
+    and alpha, both zero where the forward skips the instance)."""
+    dev = feats.device
+    b = config.tile
+    p = torch.arange(b * b, device=dev)
+    j = torch.arange(length, device=dev)
+    inside = j[None, :] < torch.tensor(counts[t0:t1], device=dev)[:, None]
+    idx = torch.where(inside, tile_start[t0:t1, None].long() + j[None, :], 0)
+    f = feats[:, idx]  # [10, B, L]
+
+    t = torch.arange(t0, t1, device=dev)
+    pix_x = ((t % tiles_x) * b).float()[:, None] + (p % b).float()[None, :]
+    pix_y = ((t // tiles_x) * b).float()[:, None] + (p // b).float()[None, :]
+    dx = f[F_X][:, None, :] - pix_x[:, :, None]  # [B, P, L]
+    dy = f[F_Y][:, None, :] - pix_y[:, :, None]
+    power = (-0.5 * (f[F_CA][:, None, :] * dx * dx
+                     + f[F_CC][:, None, :] * dy * dy)
+             - f[F_CB][:, None, :] * dx * dy)
+    opg = f[F_OP][:, None, :] * torch.exp(power)
+    alpha = torch.clamp(opg, max=config.alpha_clamp)
+    ok = inside[:, None, :] & (power <= 0.0) & (alpha >= config.alpha_min)
+    return (idx, inside, f, dx, dy, torch.where(ok, opg, 0.0),
+            torch.where(ok, alpha, 0.0))
 
 
 def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
@@ -49,72 +94,90 @@ def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
     n_contrib [nt,1,P] int32) with P = tile * tile."""
     dev = feats.device
     nt = tile_start.shape[0]
-    b = config.tile
-    npix = b * b
+    npix = config.tile * config.tile
     color = bg.reshape(1, 3, 1).expand(nt, 3, npix).clone()
     final_t = torch.ones((nt, 1, npix), dtype=torch.float32, device=dev)
     depth = torch.zeros((nt, 1, npix), dtype=torch.float32, device=dev)
     ncontrib = torch.zeros((nt, 1, npix), dtype=torch.int32, device=dev)
 
     counts = (tile_stop - tile_start).tolist()
-    p = torch.arange(npix, device=dev)
-    local_x, local_y = (p % b).float(), (p // b).float()
-
-    t0 = 0
-    while t0 < nt:
-        t1, longest = t0 + 1, counts[t0]
-        while t1 < nt and (t1 - t0 + 1) * npix * max(longest, counts[t1]) \
-                <= _REF_GROUP_ELEMS:
-            longest = max(longest, counts[t1])
-            t1 += 1
-        if longest > 0:
-            _blend_group(feats, tile_start[t0:t1], longest, bg, tiles_x, t0,
-                         local_x, local_y, config, color[t0:t1],
-                         final_t[t0:t1], depth[t0:t1], ncontrib[t0:t1],
-                         counts[t0:t1])
-        t0 = t1
+    for t0, t1, length in _tile_groups(counts, npix):
+        _, _, f, _, _, _, alpha = _group_alpha(
+            feats, tile_start, counts, t0, t1, length, tiles_x, config)
+        cum = torch.cumprod(1.0 - alpha, dim=-1)  # T after each instance
+        t_before = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]],
+                             -1)
+        accept = cum >= config.transmittance_min
+        w = torch.where(accept, alpha * t_before, 0.0)  # [B, P, L]
+        T = torch.where(accept, cum, 1.0).amin(dim=-1)  # [B, P]
+        rgb = f[F_R:F_B + 1]  # [3, B, L]
+        color[t0:t1] = (torch.einsum("bpl,cbl->bcp", w, rgb)
+                        + bg.reshape(1, 3, 1) * T[:, None, :])
+        final_t[t0:t1] = T[:, None, :]
+        depth[t0:t1] = torch.einsum("bpl,bl->bp", w, f[F_D])[:, None, :]
+        rank = torch.arange(1, length + 1, dtype=torch.int32, device=dev)
+        ncontrib[t0:t1] = torch.where(accept & (alpha > 0.0), rank, 0).amax(
+            dim=-1)[:, None, :]
     return color, final_t, depth, ncontrib
 
 
-def _blend_group(feats, start, length, bg, tiles_x, t0, local_x, local_y,
-                 config, color, final_t, depth, ncontrib, counts):
-    """Blend tiles [t0, t0 + len(start)) into the given output slices."""
+def blend_backward_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                             config: RasterConfig, dcolor, ddepth, dfinal_t,
+                             final_t, ncontrib):
+    """Plain torch K2: the explicit back-to-front gradient formula (not
+    autograd of the forward, which would add the 0.99 clamp's subgradient
+    that the reference's backward leaves out).
+
+    A pixel takes instance i where i's index in the tile is below its
+    n_contrib and i passed the forward's skips. With T_i = final_T / prod_
+    {k>=i taken}(1 - alpha_k), w_i = alpha_i T_i, g_i = dL/dC . c_i +
+    dL/dD . d_i and S_i = sum_{k>i} w_k g_k + final_T (bg . dL/dC + dL/dT):
+    dalpha_i = T_i g_i - S_i / (1 - alpha_i), dpower_i = op G_i dalpha_i with
+    the unclamped op G, and dL/d(rgb, depth)_i = w_i (dL/dC, dL/dD).
+
+    Arguments as blend_forward_reference plus the cotangents dcolor
+    [nt,3,P], ddepth and dfinal_t [nt,1,P] and the forward's final_T and
+    n_contrib. Returns the per-instance gradients [10, NK] (rows as feats;
+    columns outside every tile range are zero)."""
     dev = feats.device
-    nb = start.shape[0]
-    b = config.tile
-    j = torch.arange(length, device=dev)
-    count = torch.tensor(counts, device=dev)
-    inside = j[None, :] < count[:, None]  # [B, L]
-    idx = torch.where(inside, start[:, None].long() + j[None, :], 0)
-    f = feats[:, idx]  # [10, B, L]
+    npix = config.tile * config.tile
+    out = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+    counts = (tile_stop - tile_start).tolist()
+    bg_dot = torch.einsum("c,bcp->bp", bg.reshape(3), dcolor)
+    for t0, t1, length in _tile_groups(counts, npix):
+        idx, inside, f, dx, dy, opg, alpha = _group_alpha(
+            feats, tile_start, counts, t0, t1, length, tiles_x, config)
+        j = torch.arange(length, device=dev)
+        taken = j < ncontrib[t0:t1, 0, :, None]  # [B, P, L]
+        alpha = torch.where(taken, alpha, 0.0)
+        opg = torch.where(taken, opg, 0.0)
+        om = 1.0 - alpha
+        suffix_prod = torch.cumprod(om.flip(-1), -1).flip(-1)
+        T = final_t[t0:t1, 0, :, None]  # [B, P, 1]
+        t_before = T / suffix_prod
+        dld4 = torch.cat([dcolor[t0:t1], ddepth[t0:t1]], dim=1)  # [B, 4, P]
+        g = torch.einsum("bcp,cbl->bpl", dld4, f[F_R:F_D + 1])
+        w = alpha * t_before
+        wg = w * g
+        later = torch.cumsum(wg.flip(-1), -1).flip(-1) - wg
+        s = later + T * (bg_dot[t0:t1] + dfinal_t[t0:t1, 0])[:, :, None]
+        dalpha = torch.where(alpha > 0.0, t_before * g - s / om, 0.0)
+        dpower = opg * dalpha
 
-    t = torch.arange(t0, t0 + nb, device=dev)
-    pix_x = ((t % tiles_x) * b).float()[:, None] + local_x[None, :]  # [B, P]
-    pix_y = ((t // tiles_x) * b).float()[:, None] + local_y[None, :]
-    dx = f[F_X][:, None, :] - pix_x[:, :, None]  # [B, P, L]
-    dy = f[F_Y][:, None, :] - pix_y[:, :, None]
-    power = (-0.5 * (f[F_CA][:, None, :] * dx * dx
-                     + f[F_CC][:, None, :] * dy * dy)
-             - f[F_CB][:, None, :] * dx * dy)
-    alpha = torch.clamp(f[F_OP][:, None, :] * torch.exp(power),
-                        max=config.alpha_clamp)
-    ok = inside[:, None, :] & (power <= 0.0) & (alpha >= config.alpha_min)
-    alpha = torch.where(ok, alpha, 0.0)
-
-    cum = torch.cumprod(1.0 - alpha, dim=-1)  # T after each instance
-    t_before = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], -1)
-    accept = cum >= config.transmittance_min
-    w = torch.where(accept, alpha * t_before, 0.0)  # [B, P, L]
-    T = torch.where(accept, cum, 1.0).amin(dim=-1)  # [B, P]
-
-    rgb = f[F_R:F_B + 1]  # [3, B, L]
-    color.copy_(torch.einsum("bpl,cbl->bcp", w, rgb)
-                + bg.reshape(1, 3, 1) * T[:, None, :])
-    final_t.copy_(T[:, None, :])
-    depth.copy_(torch.einsum("bpl,bl->bp", w, f[F_D])[:, None, :])
-    rank = (j + 1).to(torch.int32)
-    ncontrib.copy_(torch.where(accept & (alpha > 0.0), rank, 0)
-                   .amax(dim=-1)[:, None, :])
+        ca, cb, cc = (f[r][:, None, :] for r in (F_CA, F_CB, F_CC))
+        d0 = dpower.sum(1)
+        op = f[F_OP]
+        grads = torch.stack([
+            -(dpower * (ca * dx + cb * dy)).sum(1),
+            -(dpower * (cc * dy + cb * dx)).sum(1),
+            (-0.5 * dx * dx * dpower).sum(1),
+            (-dx * dy * dpower).sum(1),
+            (-0.5 * dy * dy * dpower).sum(1),
+            torch.where(op.abs() > 1e-20, d0 / op, 0.0),
+            *torch.einsum("bcp,bpl->cbl", dld4, w),
+        ])  # [10, B, L]
+        out[:, idx[inside]] = grads[:, inside]
+    return out
 
 
 def _check_inputs(feats, tile_start, tile_stop, bg, tiles_x):
@@ -137,6 +200,16 @@ def _check_inputs(feats, tile_start, tile_stop, bg, tiles_x):
         raise ValueError(f"blend inputs on several devices: {devs}")
 
 
+def _check_cuda_launch(feats, config: RasterConfig):
+    if not feats.is_cuda:
+        raise ValueError("the blend kernels need CUDA tensors")
+    npix = config.tile * config.tile
+    if npix > 1024 or npix % 32:
+        raise ValueError(f"tile {config.tile} needs {npix} threads a block; "
+                         "the kernels take a multiple of 32, at most 1024")
+    return npix
+
+
 def blend_forward(feats, tile_start, tile_stop, bg, tiles_x,
                   config: RasterConfig):
     """K1 on CUDA tensors; its plain version on CPU tensors. Same arguments
@@ -150,15 +223,34 @@ def blend_forward(feats, tile_start, tile_stop, bg, tiles_x,
     raise ValueError(f"no blend for device {feats.device}")
 
 
-def _blend_library():
-    lib = load_library("blend_fwd")
-    fn = lib.segs_blend_fwd
+def blend_backward(feats, tile_start, tile_stop, bg, tiles_x,
+                   config: RasterConfig, dcolor, ddepth, dfinal_t, final_t,
+                   ncontrib):
+    """K2 on CUDA tensors; its plain version on CPU tensors. Same arguments
+    and output as `blend_backward_reference`."""
+    args = (feats, tile_start, tile_stop, bg, tiles_x, config, dcolor,
+            ddepth, dfinal_t, final_t, ncontrib)
+    if feats.is_cuda:
+        return blend_backward_cuda(*args)
+    if feats.device.type == "cpu":
+        return blend_backward_reference(*args)
+    raise ValueError(f"no blend for device {feats.device}")
+
+
+def _library(name: str, argtypes: list):
+    lib = load_library(name)
+    fn = getattr(lib, f"segs_{name}")
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, i, i, i, f, f, f,
-                       p, p, p, p, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                 _P, _P, _P, _P, _P]
+_BWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
+                 _P, _P, _P, _P, _P, _P, _P]
 
 
 def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
@@ -166,13 +258,8 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     """Launch K1 (csrc/blend_fwd.cu) on the current stream. Raises on a
     non-CUDA input or a failed launch; never falls back."""
     _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
-    if not feats.is_cuda:
-        raise ValueError("blend_forward_cuda needs CUDA tensors")
-    npix = config.tile * config.tile
-    if npix > 1024:
-        raise ValueError(f"tile {config.tile} needs {npix} threads a block; "
-                         "the kernel takes at most 1024")
-    lib = _blend_library()
+    npix = _check_cuda_launch(feats, config)
+    lib, fn = _library("blend_fwd", _FWD_ARGTYPES)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
@@ -185,7 +272,7 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     ncontrib = torch.empty((nt, 1, npix), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.segs_blend_fwd(
+        code = fn(
             feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
             tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
             config.alpha_min, config.alpha_clamp, config.transmittance_min,
@@ -199,26 +286,107 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
 blend_forward_cuda.launches = 0  # K1 launches, read by chip_smoke.py
 
 
+def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
+                        config: RasterConfig, dcolor, ddepth, dfinal_t,
+                        final_t, ncontrib):
+    """Launch K2 (csrc/blend_bwd.cu) on the current stream. Raises on a
+    non-CUDA input or a failed launch; never falls back."""
+    _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
+    npix = _check_cuda_launch(feats, config)
+    nt = tile_start.shape[0]
+    per_pixel = (("dcolor", dcolor, 3, torch.float32),
+                 ("ddepth", ddepth, 1, torch.float32),
+                 ("dfinal_t", dfinal_t, 1, torch.float32),
+                 ("final_t", final_t, 1, torch.float32),
+                 ("ncontrib", ncontrib, 1, torch.int32))
+    for name, x, c, dtype in per_pixel:
+        if x.shape != (nt, c, npix) or x.dtype != dtype \
+                or x.device != feats.device:
+            raise ValueError(f"{name} must be [{nt}, {c}, {npix}] {dtype} on "
+                             f"{feats.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    lib, fn = _library("blend_bwd", _BWD_ARGTYPES)
+    feats, tile_start, tile_stop, dcolor, ddepth, dfinal_t, final_t, \
+        ncontrib = (x.contiguous() for x in (
+            feats, tile_start, tile_stop, dcolor, ddepth, dfinal_t, final_t,
+            ncontrib))
+    bg = bg.reshape(3).contiguous()
+    dev = feats.device
+    dfeats = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(
+            feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+            tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
+            config.alpha_min, config.alpha_clamp, dcolor.data_ptr(),
+            ddepth.data_ptr(), dfinal_t.data_ptr(), final_t.data_ptr(),
+            ncontrib.data_ptr(), dfeats.data_ptr(), stream)
+    check(lib, code, "blend_bwd launch")
+    blend_backward_cuda.launches += 1
+    return dfeats
+
+
+blend_backward_cuda.launches = 0  # K2 launches, read by chip_smoke.py
+
+
+class _BinnedBlend(torch.autograd.Function):
+    """Compaction + expansion + sort + K1 forward; K2 + the gradient routing
+    of the JAX `_binned_blend_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, feats, depth, bg, aux, config, tiles_x, tiles_y):
+        cg = compact_gaussians(feats, dict(aux, depth=depth), config)
+        binned = expand_and_sort(cg, tiles_x, tiles_y, config)
+        color, final_t, depth_img, ncontrib = blend_forward(
+            binned.feats_sorted, binned.tile_start, binned.tile_stop, bg,
+            tiles_x, config)
+        ctx.mark_non_differentiable(ncontrib, binned.num_instances,
+                                    cg.num_valid)
+        ctx.save_for_backward(binned.feats_sorted, binned.tile_start,
+                              binned.tile_stop, binned.gid_sorted, cg.orig_id,
+                              cg.valid, bg, final_t, ncontrib)
+        ctx.config, ctx.tiles_x, ctx.n = config, tiles_x, feats.shape[1]
+        return (color, final_t, depth_img, ncontrib, binned.num_instances,
+                cg.num_valid)
+
+    @staticmethod
+    def backward(ctx, dcolor, dfinal_t, ddepth, *_):
+        (feats_sorted, tile_start, tile_stop, gid_sorted, orig_id, valid, bg,
+         final_t, ncontrib) = ctx.saved_tensors
+        config, n = ctx.config, ctx.n
+        dinst = blend_backward(feats_sorted, tile_start, tile_stop, bg,
+                               ctx.tiles_x, config, dcolor, ddepth, dfinal_t,
+                               final_t, ncontrib)  # [10, NK]
+        dev = dinst.device
+        # segment-sum of the instance columns into their compact gaussians,
+        # masked to the valid ones, then scattered back through the
+        # compaction (unique destinations; invalid rows go to a dropped row)
+        dcompact = torch.zeros((config.compact, NFEAT), dtype=torch.float32,
+                               device=dev)
+        dcompact.index_add_(0, gid_sorted.long(), dinst.T)
+        dcompact = torch.where(valid[:, None], dcompact, 0.0)
+        dorig = torch.zeros((n + 1, NFEAT), dtype=torch.float32, device=dev)
+        dorig.index_add_(0, torch.where(valid, orig_id, n).long(), dcompact)
+        dorig = dorig[:n]
+        dbg = (final_t * dcolor).sum(dim=(0, 2))
+        return (dorig[:, :NPAY].T, dorig[:, NPAY], dbg, None, None, None,
+                None)
+
+
 def binned_blend(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
                  config: RasterConfig, tiles_x: int, tiles_y: int):
-    """Forward half of the JAX `binned_blend`.
+    """The JAX `binned_blend`, differentiable in `feats`, aux["depth"] and
+    `bg`.
 
     feats: (NPAY, N) per-gaussian mean2d.x/y, conic a/b/c, opacity, r, g, b.
     aux: rect_min_x, rect_min_y, rect_w, touched (int32), depth (f32),
-    alive (bool), each (N,). bg: (3,). Returns (color [nt,3,P],
-    final_T [nt,1,P], depth [nt,1,P], n_contrib [nt,1,P] int32,
-    num_instances, num_compact)."""
+    alive (bool), each (N,); only depth carries a gradient (the
+    expected-depth cotangent flows back through it). bg: (3,).
+    Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
+    n_contrib [nt,1,P] int32, num_instances, num_compact)."""
     if config.packed_train or config.sel_direct or config.pack8:
         raise ValueError("the packed binning is not ported; use a config "
                          "with packed_train, sel_direct and pack8 off")
-    if torch.is_grad_enabled() and (feats.requires_grad
-                                    or aux["depth"].requires_grad):
-        raise RuntimeError("binned_blend is forward-only (no backward "
-                           "kernel yet); call it under torch.inference_mode()")
-    cg = compact_gaussians(feats, aux, config)
-    binned = expand_and_sort(cg, tiles_x, tiles_y, config)
-    color, final_t, depth, ncontrib = blend_forward(
-        binned.feats_sorted, binned.tile_start, binned.tile_stop,
-        bg.to(torch.float32), tiles_x, config)
-    return (color, final_t, depth, ncontrib, binned.num_instances,
-            cg.num_valid)
+    rest = {k: v for k, v in aux.items() if k != "depth"}
+    return _BinnedBlend.apply(feats, aux["depth"], bg.to(torch.float32), rest,
+                              config, tiles_x, tiles_y)

@@ -165,10 +165,12 @@ def compute_cov2d(means3d, cov3d, world_view_transform, focal_x, focal_y,
     tx0, ty0, tz, _ = _transform_rows(x, y, z, wvt)
     tz = _away_from_zero(tz, 1e-6)
 
-    limx = 1.3 * tan_fovx
-    limy = 1.3 * tan_fovy
-    tx = torch.clamp(tx0 / tz, -limx, limx) * tz
-    ty = torch.clamp(ty0 / tz, -limy, limy) * tz
+    # jnp.clip's tie gradient (0.5 to each side at a bound) comes from
+    # minimum/maximum; torch.clamp would pass all of it to x
+    limx = torch.as_tensor(1.3 * tan_fovx, dtype=tz.dtype, device=tz.device)
+    limy = torch.as_tensor(1.3 * tan_fovy, dtype=tz.dtype, device=tz.device)
+    tx = _clip(tx0 / tz, -limx, limx) * tz
+    ty = _clip(ty0 / tz, -limy, limy) * tz
 
     inv_z = 1.0 / tz
     inv_z2 = inv_z * inv_z

@@ -180,8 +180,8 @@ def test_blend_dispatch_and_guards():
            "rect_w": torch.ones(n, dtype=torch.int32),
            "touched": torch.ones(n, dtype=torch.int32),
            "depth": torch.rand(n), "alive": torch.ones(n, dtype=torch.bool)}
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tblend.binned_blend(pay, aux, bg, cfg, 2, 1)
+    out = tblend.binned_blend(pay, aux, bg, cfg, 2, 1)  # differentiable now
+    assert out[0].requires_grad and not out[3].requires_grad
     with pytest.raises(ValueError, match="packed"):
         tblend.binned_blend(pay.detach(), aux, bg,
                             RasterConfig(compact=64, kmax=4,

@@ -92,8 +92,15 @@ def test_se3_matches_jax(name):
         np.testing.assert_allclose(ours.numpy(), ref, atol=1e-6, rtol=0)
 
 
+TRAINING_SLICE = (
+    "ops.rasterizer.dense", "train.config", "train.densify", "train.losses",
+    "train.optimizer", "train.schedules", "train.step", "train.trainer",
+    "slam.scene", "io.ply", "utils.synthetic", "apps.train_synthetic")
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves JAX out of sys.modules."""
+    """Importing every module of the port, the training slice's included,
+    leaves JAX out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import segs_slam_tpu_torch as pkg\n"
@@ -103,9 +110,11 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'segs_slam_tpu.')) or "
         "m == 'segs_slam_tpu')\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
-    )
+        "need = {'segs_slam_tpu_torch.' + n for n in (%r)}\n"
+        "missing = sorted(need - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 38 else 0)\n"
+    ) % (TRAINING_SLICE,)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
