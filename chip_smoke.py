@@ -5,39 +5,49 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints the card's name and power
      limit and the torch / CUDA / nvcc versions;
-  2. build: compiles kernels K1 (csrc/blend_fwd.cu) and K2
-     (csrc/blend_bwd.cu) from this checkout, one nvcc each, in parallel;
-     prints ptxas registers and spills;
+  2. build: compiles kernels K1 (csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu)
+     and K3 + K4 (csrc/blend_eval.cu) from this checkout, one nvcc each, in
+     parallel; prints ptxas registers and spills;
   3. kernels: on a full-size 640x480 view of a seeded full-width map, K1
      against its plain PyTorch version on the same binned input (n_contrib
      equal on >= 99.99 % of pixels; there, colour and final_T within 2e-4
      and depth within rtol 1e-4), then K2 against its plain version on the
      same input with seeded colour / depth / final_T cotangents (every
-     gradient row within 1e-4 of that row's largest magnitude); CUDA-event
-     timings, bounds, and a per-layer breakdown of the render;
+     gradient row within 1e-4 of that row's largest magnitude); then, at
+     calibrate_eval_config's sizes for that view, K3 on the pack8 columns of
+     the direct selection, K3 on the f16 columns of the compaction branch
+     and K4 on its f32 rows, each against its plain version (colour within
+     2e-4 on every pixel); CUDA-event timings, bounds, and per-layer
+     breakdowns of the f32 render and of the eval render;
   4. render path: the map rendered by the render_views app (8 orbit views
-     at 480x480); images finite, in [0, 1] and not blank, K1 launched once
-     per view;
+     at 480x480, calibrate_eval_config + EvalRenderer); images finite, in
+     [0, 1] and not blank, K3 launched once per view and no other kernel;
+     each view against the f32 render of the same view within the pack8
+     bound (max 2e-2, mean 1.5e-3) wherever neither path's capacities bind;
+     both paths' ms/view;
   5. training path: the train_synthetic app at its full width for 300
      iterations with the frequency losses; the loss finite throughout and
      lower at the end than at the start, the evaluate PSNR at least 3 dB
-     above the untrained map's, K2 launched once per iteration;
+     above the untrained map's, K2 launched once per iteration and K3 once
+     per keyframe in each of the two evaluations;
   6. trained map: a second Trainer built with the same flags. Inside the
      frequency-loss window, the step's layers (forward, loss, backward,
      Adam: make_train_step's record_function ranges) and the device's busy
      share by torch.profiler. After 300 iterations, K1 and K2 against their
      plain versions, at the gates of phase 3, on the inputs of 24 further
      steps: with the loss's own cotangents, with seeded ones, and with the
-     opacities above 0.5 raised to 1 so that alpha meets the 0.99 clamp;
-     the kernels' times and bounds on those inputs go into the kernels
-     line;
+     opacities above 0.5 raised to 1 so that alpha meets the 0.99 clamp.
+     Then evaluate() (K3 once per keyframe, K1 never), K3 against its plain
+     version on the 24 keyframes' own inputs, again with the opacities
+     raised, and record_all_keyframes' files read back by the harness. The
+     kernels' times and bounds on those inputs go into the kernels line;
   7. densify: a Trainer at the same width whose densification runs four
      times in 55 iterations; active slots contiguous, parameters finite,
      n_active changed, the loss after it finite; one adjust timed;
-  8. small input: the whole render, and one train step, of a small map on
-     the card against the CPU path (the plain versions the CPU tests hold
-     to the JAX package): image atol 2e-4, per-leaf gradients within 2e-4
-     of the leaf's largest, loss within rtol 1e-5.
+  8. small input: the whole render, one train step and the eval render of a
+     small map on the card against the CPU path (the plain versions the CPU
+     tests hold to the JAX package): images atol 2e-4, per-leaf gradients
+     within 2e-4 of the leaf's largest, loss within rtol 1e-5.
 Prints a JSON line with each kernel's numbers, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -61,7 +71,18 @@ WORK = ROOT / "build" / "chip_smoke"
 SEED = 0
 N_VIEWS = 8
 TRAIN_ITERS = 300
-KERNELS = ("blend_fwd", "blend_bwd")
+LIBRARIES = ("blend_fwd", "blend_bwd", "blend_eval")  # csrc/<name>.cu
+# the kernels line's entries: (source, TPU kernel replaced)
+KERNELS = {
+    "blend_fwd": ("segs_slam_tpu_torch/csrc/blend_fwd.cu",
+                  "segs_slam_tpu/ops/rasterizer/blend.py:361"),
+    "blend_bwd": ("segs_slam_tpu_torch/csrc/blend_bwd.cu",
+                  "segs_slam_tpu/ops/rasterizer/blend.py:515"),
+    "blend_eval_packed": ("segs_slam_tpu_torch/csrc/blend_eval.cu",
+                          "segs_slam_tpu/ops/rasterizer/blend.py:252"),
+    "blend_eval": ("segs_slam_tpu_torch/csrc/blend_eval.cu",
+                   "segs_slam_tpu/ops/rasterizer/blend.py:720"),
+}
 
 TRAINED_STEPS = 24
 LAYERS = ("forward", "loss", "backward", "adam")
@@ -75,12 +96,17 @@ LAYERS = ("forward", "loss", "backward", "adam")
 # exp, op G, the clamp, the alpha test, T (1 - alpha), the latch test, w
 # and four weighted sums (16); in K2, exp, op G, the clamp, the alpha test,
 # 1 - alpha, T recovery, w, g (7), dpower (4), S (2), the ten gradient
-# values (20) and their sums over the tile's pixels (10) (50).
+# values (20) and their sums over the tile's pixels (10) (50); in K3 and K4,
+# K1's less the depth sum (14). K3 reads 20 B an instance (five u32
+# columns) or 16 B (pack8's four), K4 36 B (nine f32 rows).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_TEST = 12
 K1_OPS_PER_TAKE = 16
 K2_OPS_PER_TAKE = 50
+EVAL_OPS_PER_TAKE = K1_OPS_PER_TAKE - 2
+# the eval pack8 bound against the f32 render (tests/test_packed_binning.py)
+PACK8_MAX, PACK8_MEAN = 2e-2, 1.5e-3
 
 
 def fail(msg: str):
@@ -154,7 +180,8 @@ def bound(work: tuple[float, float], calls: int = 1) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc) -> dict:
+def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc,
+                tile_local: bool = False) -> dict:
     """The (pixel, instance) pairs of one binned view, from the plain
     version's per-pair alphas and K1's n_contrib: `taken` (the pixel takes
     the instance), `clamped` (taken, with op G above the 0.99 clamp),
@@ -170,7 +197,8 @@ def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc) -> dict:
     n = dict.fromkeys(("fwd_tested", "bwd_tested", "taken", "clamped"), 0)
     for t0, t1, length in _tile_groups(counts, rc.tile * rc.tile):
         _, inside, _, _, _, opg, alpha = _group_alpha(
-            feats, tile_start, counts, t0, t1, length, tiles_x, rc)
+            feats, tile_start, counts, t0, t1, length, tiles_x, rc,
+            tile_local)
         below = (torch.arange(length, device=feats.device)
                  < ncontrib[t0:t1, 0, :, None])
         taken = below & (alpha > 0.0)
@@ -202,6 +230,78 @@ def blend_work(tile_start, tile_stop, ncontrib, nk, pairs):
           OPS_PER_TEST * pairs["bwd_tested"]
           + K2_OPS_PER_TAKE * pairs["taken"])
     return k1, k2
+
+
+def eval_work(tile_start, tile_stop, npix, bytes_per_instance, pairs):
+    """An eval kernel's (bytes, FP32 operations) on one binned view: each
+    instance of a tile range read once, the tile ranges and bg, 12 B of
+    colour written a pixel; 12 operations a tested pair and 14 a taken
+    one."""
+    nt = tile_start.shape[0]
+    n = int((tile_stop - tile_start).sum())
+    return (n * bytes_per_instance + nt * 8 + 12 + nt * npix * 12,
+            OPS_PER_TEST * pairs["fwd_tested"]
+            + EVAL_OPS_PER_TAKE * pairs["taken"])
+
+
+def eval_input(kind, x, rc):
+    """What an eval kernel's plain version composites: (f32 rows, whether
+    mean2d is tile-local, bytes an instance) for K3's columns (int32) or
+    K4's rows."""
+    from segs_slam_tpu_torch.ops.rasterizer.blend import decode_eval_columns
+
+    if kind == "blend_eval":
+        return x, False, 36
+    return decode_eval_columns(x, rc.pack8), True, 4 * x.shape[0]
+
+
+def check_eval(kind, args) -> dict:
+    """K3 (kind blend_eval_packed) or K4 (blend_eval) against its plain
+    version on one binned input (x, tile_start, tile_stop, bg, tiles_x,
+    config): colour within 2e-4 on every pixel. Also the input's (pixel,
+    instance) pairs, its (bytes, operations), and how far the latch cuts
+    the pairs a pixel tests (the plain version's T)."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+
+    kernel, plain = {
+        "blend_eval_packed": (blend.blend_forward_eval_packed_cuda,
+                              blend.blend_forward_eval_packed_reference),
+        "blend_eval": (blend.blend_forward_eval_cuda,
+                       blend.blend_forward_eval_reference)}[kind]
+    x, start, stop, bg, tx, rc = args
+    ref = plain(*args)
+    got = kernel(*args)
+    err = float((got - ref).abs().max())
+    rows, local, nbytes = eval_input(kind, x, rc)
+    _, _, _, ncontrib = blend._forward_reference(
+        rows, start, stop, bg, tx, rc, tile_local=local, with_depth=False)
+    npix = rc.tile * rc.tile
+    pairs = pair_counts(rows, start, stop, ncontrib, tx, rc, local)
+    in_range = int((stop - start).sum()) * npix
+    return {"out": got, "max_abs_err": err, "pairs": pairs,
+            "work": eval_work(start, stop, npix, nbytes, pairs),
+            "tested_share": pairs["fwd_tested"] / max(in_range, 1),
+            "ok": err <= 2e-4 and bool(torch.isfinite(got).all())}
+
+
+def raise_opacity(x, rc):
+    """The eval input with every opacity above 0.5 raised to 1 (alpha then
+    meets the 0.99 clamp near each such instance's centre)."""
+    from segs_slam_tpu_torch.ops.rasterizer.binning import _f16_from_bits
+    from segs_slam_tpu_torch.ops.rasterizer.blend import F_OP
+
+    x = x.clone()
+    if x.dtype == torch.float32:  # K4's rows
+        x[F_OP] = torch.where(x[F_OP] > 0.5, 1.0, x[F_OP])
+        return x
+    if rc.pack8:  # 11-bit opacity in column 2, bits 16..26
+        q = (x[2] >> 16) & 0x7FF
+        x[2] = torch.where(q > 1023, x[2] | (0x7FF << 16), x[2])
+        return x
+    op = _f16_from_bits(x[2].to(torch.int64) >> 16)  # f16, high half
+    one = 0x3C00 << 16  # f16 1.0
+    x[2] = torch.where(op > 0.5, (x[2] & 0xFFFF) | one, x[2])
+    return x
 
 
 def check_forward(args) -> dict:
@@ -251,12 +351,12 @@ def check_backward(args) -> dict:
 
 
 def launch_counters():
-    from segs_slam_tpu_torch.ops.rasterizer.blend import (
-        blend_backward_cuda,
-        blend_forward_cuda,
-    )
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
 
-    return {"blend_fwd": blend_forward_cuda, "blend_bwd": blend_backward_cuda}
+    return {"blend_fwd": blend.blend_forward_cuda,
+            "blend_bwd": blend.blend_backward_cuda,
+            "blend_eval_packed": blend.blend_forward_eval_packed_cuda,
+            "blend_eval": blend.blend_forward_eval_cuda}
 
 
 def reset_launches():
@@ -292,15 +392,16 @@ def phase_build():
     from segs_slam_tpu_torch.ops.cuda_lib import build_library, load_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        libs = dict(zip(KERNELS, ex.map(build_library, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        libs = dict(zip(LIBRARIES, ex.map(build_library, LIBRARIES)))
     for name, lib in libs.items():
         load_library(name)
         print(f"[build] {name}: {lib.name}", flush=True)
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
-    print(f"[build] K1 + K2 in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] K1, K2, K3 + K4 in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
 
 def phase_kernels(anchors, decoders, mc, rc, dev):
@@ -414,14 +515,152 @@ def phase_kernels(anchors, decoders, mc, rc, dev):
           flush=True)
 
 
-def phase_render_path(map_path, rc):
+def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
+    """K3 (pack8 and f16 columns) and K4 against their plain versions on
+    the kernel phase's 640x480 view, at calibrate_eval_config's sizes for
+    that view, and the layers of one eval render. Returns K4's numbers for
+    the kernels line (no main path runs K4)."""
+    import segs_slam_tpu_torch.ops.rasterizer.binning as binning
+    from segs_slam_tpu_torch.core import Camera, Keyframe
+    from segs_slam_tpu_torch.models.renderer import (
+        calibrate_eval_config,
+        neural_gaussians_for_view,
+    )
+    from segs_slam_tpu_torch.ops.rasterizer.blend import (
+        blend_forward_eval_cuda,
+        blend_forward_eval_packed_cuda,
+        blend_forward_eval_packed_reference,
+        blend_forward_eval_reference,
+    )
+    from segs_slam_tpu_torch.ops.rasterizer.rasterize import project
+
+    w, h = 640, 480
+    cam = Camera(camera_id=0, width=w, height=h, fx=500.0, fy=500.0,
+                 cx=w / 2, cy=h / 2)
+    kf = Keyframe(kf_id=0, camera=cam, quat=[1, 0, 0, 0], trans=[0, 0, 0])
+    c = {k: torch.as_tensor(v, device=dev)
+         for k, v in kf.render_inputs().items()}
+    bg = torch.tensor([0.25, 0.5, 0.75], device=dev)
+    cal = calibrate_eval_config(rc, mc, anchors, decoders, [c], w, h)
+    f16 = dataclasses.replace(cal, sel_direct=False, pack8=False)
+    tx, ty = cal.grid(w, h)
+    print(f"[eval] 640x480 calibrated eval config: ksmall {cal.ksmall}, kmid "
+          f"{cal.kmid}, nmid {cal.nmid}, nlarge {cal.nlarge}, compact "
+          f"{cal.compact}, NK {cal.max_instances}", flush=True)
+
+    stages = {}
+
+    def decode():
+        stages["decode"] = neural_gaussians_for_view(
+            anchors, decoders, c, w, h, mc, cal)[1]
+
+    def preprocess():
+        ng = stages["decode"]
+        stages["preprocess"] = project(
+            ng.xyz, ng.scaling, ng.rotation, ng.opacity, ng.color,
+            c["world_view_transform"], c["full_proj_transform"], w, h,
+            c["tan_fovx"], c["tan_fovy"], cal, ng.valid)[1:]
+
+    def binning_all():
+        stages["binning"] = binning.bin_eval_direct(
+            *stages["preprocess"], tx, ty, cal, return_packed=True)
+
+    with torch.inference_mode():
+        layer_ms = {name: cuda_ms(fn, reps=10) for name, fn in (
+            ("decode", decode), ("preprocess", preprocess),
+            ("binning", binning_all))}
+        # the binning's two sorts alone, on this view's keys
+        feats, aux = stages["preprocess"]
+        pays, dmeta, ok, opac_q, _ = binning._pack_eval_cols(feats, aux, cal)
+        sel_key = torch.where(
+            ok, ((cal.kmax - binning._touched(dmeta)) << 16) | opac_q,
+            binning._SEL_DEAD)
+        sel = torch.sort(sel_key, stable=True).indices
+        ukey = binning._expand_tiers(pays, dmeta, sel[:cal.compact], sel, tx,
+                                     tx * ty, cal)[0][0]
+        layer_ms["selection_sort"] = cuda_ms(
+            lambda: torch.sort(sel_key, stable=True), reps=10)
+        layer_ms["instance_sort"] = cuda_ms(
+            lambda: torch.sort(ukey, stable=True), reps=10)
+
+        cols, start, stop, n_inst, n_valid = stages["binning"]
+        pc = binning.compact_gaussians_packed(feats, aux, f16)
+        inputs = {
+            "K3 pack8": ("blend_eval_packed", blend_forward_eval_packed_cuda,
+                         blend_forward_eval_packed_reference,
+                         (binning.as_u32_bits(cols), start, stop, bg, tx,
+                          cal)),
+            "K3 f16": ("blend_eval_packed", blend_forward_eval_packed_cuda,
+                       blend_forward_eval_packed_reference),
+            "K4": ("blend_eval", blend_forward_eval_cuda,
+                   blend_forward_eval_reference),
+        }
+        c16, s16, e16, _, _ = binning.expand_and_sort_packed(
+            pc, tx, ty, f16, return_packed=True)
+        inputs["K3 f16"] += ((binning.as_u32_bits(c16), s16, e16, bg, tx,
+                              f16),)
+        f32, s32, e32, _, _ = binning.expand_and_sort_packed(pc, tx, ty, f16)
+        inputs["K4"] += ((f32, s32, e32, bg, tx, f16),)
+        results = {}
+        for name, (kind, kernel, plain, args) in inputs.items():
+            res = check_eval(kind, args)
+            torch.cuda.synchronize()
+            res["ms"] = cuda_ms(lambda: kernel(*args), reps=20, warmup=3)
+            res["plain_ms"] = cuda_ms(lambda: plain(*args), reps=5)
+            res.update(bound(res["work"]))
+            results[name] = res
+        layer_ms["K3"] = results["K3 pack8"]["ms"]
+
+    print(f"[eval] 640x480: {int(n_inst)} instances of NK {cols.shape[1]}, "
+          f"{int(n_valid)} live gaussians for compact {cal.compact}; layers "
+          f"of the eval render (ms, CUDA events, median of 10; binning = "
+          f"packing + selection sort + expansion + instance sort): "
+          f"{json.dumps({k: round(v, 4) for k, v in layer_ms.items()})}",
+          flush=True)
+    for name, r in results.items():
+        print(f"[eval] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms"
+              f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max |err| "
+              f"{r['max_abs_err']:.3g}; pairs {r['pairs']}; the latch leaves "
+              f"{100 * r['tested_share']:.2f} % of the (pixel, instance) "
+              f"pairs in range to test", flush=True)
+    for name, r in results.items():
+        if not r["ok"]:
+            fail(f"{name} disagrees with its plain version: max |err| "
+                 f"{r['max_abs_err']}")
+    if int(n_inst) == 0:
+        fail("the eval kernel view binned no instances")
+    k4 = results["K4"]
+    return {"max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+            "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+            "bound_by": k4["bound_by"], "library_ms": None}
+
+
+def live_and_large(anchors, decoders, mc, rc, cam, w, h):
+    """A view's live gaussians and those whose kmax-clamped footprint
+    exceeds ksmall and kmid: what the compaction and the tiers must hold."""
+    from segs_slam_tpu_torch.models.renderer import project_view
+
+    _, neural, proj, _, _ = project_view(anchors, decoders, cam, w, h, mc, rc)
+    t = torch.where((proj.radius > 0) & neural.valid,
+                    torch.clamp(proj.tiles_touched, max=rc.kmax), 0)
+    return (int((t > 0).sum()), int((t > rc.ksmall).sum()),
+            int((t > rc.kmid).sum()) if rc.kmid else 0)
+
+
+def phase_render_path(map_path, rc, mc):
+    """render_views (calibrate_eval_config + EvalRenderer, K3), then each
+    view again through the f32 render (K1) at the app's training config."""
     from segs_slam_tpu_torch.apps import render_views
+    from segs_slam_tpu_torch.core import Camera, Keyframe
+    from segs_slam_tpu_torch.io.convert import load_map
+    from segs_slam_tpu_torch.models.renderer import render
 
     out_dir = WORK / "views"
-    argv = ["--map", str(map_path), "--out", str(out_dir), "--size", "480",
-            "--orbit-frames", str(N_VIEWS), "--compact", str(rc.compact),
-            "--kmax", str(rc.kmax), "--ksmall", str(rc.ksmall),
-            "--nlarge", str(rc.nlarge), "--device", "cuda"]
+    size = 480
+    argv = ["--map", str(map_path), "--out", str(out_dir), "--size",
+            str(size), "--orbit-frames", str(N_VIEWS), "--compact",
+            str(rc.compact), "--kmax", str(rc.kmax), "--ksmall",
+            str(rc.ksmall), "--nlarge", str(rc.nlarge), "--device", "cuda"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -433,7 +672,7 @@ def phase_render_path(map_path, rc):
         fail(f"render_views returned {len(views)} views, not {N_VIEWS}")
     for i, v in enumerate(views):
         img = v["image"]
-        if img.shape != (3, 480, 480) or not np.isfinite(img).all():
+        if img.shape != (3, size, size) or not np.isfinite(img).all():
             fail(f"view {i}: shape {img.shape} or non-finite values")
         if img.min() < 0.0 or img.max() > 1.0 + 1e-6:
             fail(f"view {i} outside [0, 1]: {img.min()} .. {img.max()}")
@@ -441,18 +680,70 @@ def phase_render_path(map_path, rc):
             fail(f"view {i} is blank (range {img.max() - img.min()})")
         if not (out_dir / f"view{i:04d}.png").is_file():
             fail(f"view {i} PNG missing")
-    if launches != {"blend_fwd": N_VIEWS, "blend_bwd": 0}:
-        fail(f"launches {launches} for {N_VIEWS} views")
+    want = dict.fromkeys(KERNELS, 0)
+    want["blend_eval_packed"] = N_VIEWS
+    if launches != want:
+        fail(f"launches {launches} for {N_VIEWS} views, expected {want}")
+    cal = views[0]["raster_config"]
     ms = [v["ms"] for v in views]
-    print(f"[render] render_views: {N_VIEWS} views at 480x480, ms/view "
+    print(f"[render] render_views: {N_VIEWS} views at {size}x{size} through "
+          f"EvalRenderer (K3), ms/view "
           f"{json.dumps([round(x, 3) for x in ms])}; mean {np.mean(ms):.3f} "
           f"ms, mean without the first {np.mean(ms[1:]):.3f} ms "
           f"({1000 / np.mean(ms[1:]):.1f} FPS); peak memory "
           f"{peak / 2**20:.1f} MiB; launches {launches}", flush=True)
-    print(f"[render] num_compact {[v['num_compact'] for v in views]} of "
-          f"{rc.compact}; num_instances "
-          f"{[v['num_instances'] for v in views]} of {rc.max_instances}",
-          flush=True)
+    print(f"[render] calibrated eval config: ksmall {cal.ksmall}, kmid "
+          f"{cal.kmid}, nmid {cal.nmid}, nlarge {cal.nlarge}, compact "
+          f"{cal.compact}; num_compact {[v['num_compact'] for v in views]}; "
+          f"num_instances {[v['num_instances'] for v in views]} of "
+          f"{cal.max_instances}", flush=True)
+
+    # the same views through the f32 render (K1): timed at the app's
+    # training config (the render_views of earlier versions), and held at
+    # the flat (single-tier) config, whose only capacity is the compaction
+    dev = torch.device("cuda")
+    anchors, decoders = load_map(map_path, dev)
+    camera = Camera(camera_id=0, width=size, height=size, fx=0.9 * size,
+                    fy=0.9 * size, cx=size / 2, cy=size / 2)
+    bg = torch.zeros(3, device=dev)
+    flat = dataclasses.replace(rc, ksmall=0, nlarge=0)
+    f32_ms, diffs, gated = [], [], 0
+    with torch.inference_mode():
+        for i, v in enumerate(views):
+            q, t = v["pose"]
+            kf = Keyframe(kf_id=i, camera=camera, quat=q, trans=t)
+            cam = {k: torch.as_tensor(x, device=dev)
+                   for k, x in kf.render_inputs().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(anchors, decoders, cam, size, size, bg, mc, rc).image.cpu()
+            f32_ms.append((time.perf_counter() - t0) * 1e3)
+            exact = render(anchors, decoders, cam, size, size, bg, mc,
+                           flat).image.cpu().numpy()
+            d = np.abs(v["image"] - exact)
+            live, over_ks, over_kmid = live_and_large(anchors, decoders, mc,
+                                                      cal, cam, size, size)
+            binds = [name for name, b in (
+                ("compact", live > cal.compact), ("nmid", over_ks > cal.nmid),
+                ("nlarge", over_kmid > cal.nlarge)) if b]
+            diffs.append((round(float(d.max()), 6), round(float(d.mean()), 7),
+                          live, over_ks, over_kmid, binds))
+            if not binds:
+                gated += 1
+                if d.max() > PACK8_MAX or d.mean() > PACK8_MEAN:
+                    fail(f"view {i}: eval render off the f32 render by max "
+                         f"{d.max():.4g}, mean {d.mean():.4g}")
+    print(f"[render] the same views through render (K1) at the training "
+          f"config, ms/view {json.dumps([round(x, 3) for x in f32_ms])}; "
+          f"mean without the first {np.mean(f32_ms[1:]):.3f} ms against the "
+          f"eval path's {np.mean(ms[1:]):.3f} ms (host clock to the image on "
+          f"the host)", flush=True)
+    print(f"[render] eval vs the flat f32 render per view (max |diff|, mean "
+          f"|diff|, live gaussians, footprints above ksmall, above kmid, "
+          f"eval capacities that bind): {diffs}; {gated} of {N_VIEWS} views "
+          f"gated at max {PACK8_MAX}, mean {PACK8_MEAN}", flush=True)
+    if gated == 0:
+        fail("no view of the render path could be held to the f32 render")
 
 
 def phase_train_path():
@@ -485,10 +776,10 @@ def phase_train_path():
     if not m["psnr"] >= m["psnr_init"] + 3.0:
         fail(f"PSNR {m['psnr']} is not 3 dB above the untrained map's "
              f"{m['psnr_init']}")
-    # K1: the gt renders, the untrained and the final evaluate, and one
-    # forward per iteration; K2: one backward per iteration
-    want = {"blend_fwd": 3 * n_views + TRAIN_ITERS,
-            "blend_bwd": TRAIN_ITERS}
+    # K1: the gt renders and one forward per iteration; K2: one backward
+    # per iteration; K3: the untrained and the final evaluate
+    want = {"blend_fwd": n_views + TRAIN_ITERS, "blend_bwd": TRAIN_ITERS,
+            "blend_eval_packed": 2 * n_views, "blend_eval": 0}
     if launches != want:
         fail(f"launches {launches}, expected {want}")
     return launches
@@ -678,7 +969,9 @@ def phase_trained() -> dict:
         fail(f"n_contrib equal on only {agree} of the trained steps' pixels")
     if n_clamped["raised"] == 0:
         fail("raising the opacities put no pair above the alpha clamp")
+    k3 = trained_eval(t)
     return {
+        "blend_eval_packed": k3,
         "blend_fwd": {"max_abs_err": k1_err, "ms": mean["k1_ms"],
                       "plain_ms": mean["k1_plain_ms"],
                       "bound_ms": mean["k1_bound_ms"],
@@ -690,6 +983,101 @@ def phase_trained() -> dict:
                       "bound_by": bounds["k2"]["bound_by"],
                       "library_ms": None},
     }
+
+
+def trained_eval(t) -> dict:
+    """The trained Trainer's evaluate (K3 once per keyframe, K1 never), K3
+    against its plain version on the keyframes' own inputs, as trained and
+    with the opacities above 0.5 raised to 1, and record_all_keyframes'
+    files read back by the harness. Returns K3's numbers for the kernels
+    line (per call, mean over the keyframes)."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    from segs_slam_tpu_torch.eval import harness
+    from segs_slam_tpu_torch.eval.recorder import record_all_keyframes
+
+    captured = []
+    packed = blend.blend_forward_eval_packed
+
+    def recording(*args):
+        captured.append(args)
+        return packed(*args)
+
+    t.reset_eval_renderer()  # calibrated on the trained map
+    blend.blend_forward_eval_packed = recording
+    reset_launches()
+    try:
+        m = t.evaluate()
+        torch.cuda.synchronize()
+    finally:
+        blend.blend_forward_eval_packed = packed
+    launches = read_launches()
+    n_kf = m["n_keyframes"]
+    want = dict.fromkeys(KERNELS, 0)
+    want["blend_eval_packed"] = n_kf
+    rc = t.eval_renderer().raster_config
+    print(f"[trained] evaluate: PSNR {m['psnr']:.3f} dB, SSIM "
+          f"{m['ssim']:.4f} over {n_kf} keyframes; launches {launches}; "
+          f"eval config ksmall {rc.ksmall} kmid {rc.kmid} nmid {rc.nmid} "
+          f"nlarge {rc.nlarge} compact {rc.compact} pack8 {rc.pack8}",
+          flush=True)
+    if launches != want or len(captured) != n_kf:
+        fail(f"evaluate launched {launches}, expected {want}")
+
+    sums = dict.fromkeys(("ms", "plain_ms"), 0.0)
+    work = np.zeros(2)
+    err = {"own": 0.0, "raised": 0.0}
+    tested, clamped = [], 0
+    with torch.inference_mode():
+        for args in captured:
+            own = check_eval("blend_eval_packed", args)
+            raised = check_eval("blend_eval_packed",
+                                (raise_opacity(args[0], args[5]), *args[1:]))
+            for name, res in (("own", own), ("raised", raised)):
+                if not res["ok"]:
+                    fail(f"K3 disagrees with its plain version on a trained "
+                         f"keyframe ({name}): max |err| {res['max_abs_err']}")
+                err[name] = max(err[name], res["max_abs_err"])
+            clamped += raised["pairs"]["clamped"]
+            tested.append(own["tested_share"])
+            work += own["work"]
+            sums["ms"] += cuda_ms(lambda: blend.blend_forward_eval_packed_cuda(
+                *args), reps=5, warmup=1)
+            sums["plain_ms"] += cuda_ms(
+                lambda: blend.blend_forward_eval_packed_reference(*args),
+                reps=1, warmup=1)
+    mean = {k: v / n_kf for k, v in sums.items()}
+    b = bound(work, n_kf)
+    print(f"[trained] K3 on the {n_kf} keyframes' own inputs (256x256, NK "
+          f"{captured[0][0].shape[1]}): max |err| {err['own']:.3g}, with the "
+          f"opacities raised {err['raised']:.3g} ({clamped} taken pairs "
+          f"above the clamp); per call {mean['ms']:.4f} ms, plain "
+          f"{mean['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}), (bytes, operations) a call "
+          f"{(work / n_kf).tolist()}; the latch leaves "
+          f"{100 * float(np.mean(tested)):.2f} % of the pairs in range to "
+          f"test", flush=True)
+    if clamped == 0:
+        fail("raising the opacities put no K3 pair above the alpha clamp")
+
+    out = WORK / "record"
+    res = record_all_keyframes(t, out)
+    run = harness.evaluate_run(out)
+    times = np.loadtxt(out / "render_time.txt")
+    peak = out / "DevicePeakUsageMB.txt"
+    if not peak.is_file():
+        fail(f"record_all_keyframes wrote no {peak.name} on the card")
+    print(f"[trained] record_all_keyframes: {len(times)} keyframes, "
+          f"render_time {float(times.mean()):.3f} ms "
+          f"(per dispatch {float(np.loadtxt(out / 'render_time_per_dispatch.txt').mean()):.3f}"
+          f" ms), render_fps {res['render_fps']:.1f}, harness render_fps "
+          f"{run.get('render_fps', float('nan')):.1f}, PSNR {run['psnr']:.3f}; "
+          f"device peak {float(np.loadtxt(peak)):.1f} MB",
+          flush=True)
+    if len(times) != n_kf or not np.isfinite(run.get("render_fps", np.nan)):
+        fail(f"the harness read no finite render_fps from {out}")
+    return {"max_abs_err": err["own"], "ms": mean["ms"],
+            "plain_ms": mean["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
 
 
 def phase_densify():
@@ -727,8 +1115,8 @@ def phase_densify():
 
 
 def phase_small_input(dev):
-    """The whole render, and one train step, of a small map on the card
-    against the CPU path."""
+    """The whole render, one train step and the eval render of a small map
+    on the card against the CPU path."""
     from segs_slam_tpu_torch.core import Camera, Keyframe
     from segs_slam_tpu_torch.io.convert import (
         anchors_from_numpy,
@@ -736,7 +1124,7 @@ def phase_small_input(dev):
         flatten_params,
     )
     from segs_slam_tpu_torch.models.config import ModelConfig
-    from segs_slam_tpu_torch.models.renderer import render
+    from segs_slam_tpu_torch.models.renderer import EvalRenderer, render
     from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
     from segs_slam_tpu_torch.train.config import OptimizationConfig
     from segs_slam_tpu_torch.train.optimizer import leaves
@@ -756,7 +1144,7 @@ def phase_small_input(dev):
     kf = Keyframe(kf_id=0, camera=cam, quat=[1, 0, 0, 0], trans=[0, 0, 0])
     gt = np.random.default_rng(SEED + 3).uniform(0, 1, (3, h, w)).astype(
         np.float32)
-    images, steps = [], []
+    images, steps, evals = [], [], []
     for d in ("cpu", dev):
         cam_d = {k: torch.as_tensor(v, device=d)
                  for k, v in kf.render_inputs().items()}
@@ -766,6 +1154,10 @@ def phase_small_input(dev):
                 anchors_from_numpy(anchors_np, d),
                 decoders_from_jax(flatten_params(dec_np), d), cam_d, w, h,
                 bg, mc, rc))
+        evals.append(EvalRenderer(
+            mc, rc.eval_variant(w, h), w, h, bg, device=d).render_with_counts(
+                anchors_from_numpy(anchors_np, d),
+                decoders_from_jax(flatten_params(dec_np), d), cam_d))
         ts = init_train_state(anchors_from_numpy(anchors_np, d),
                               decoders_from_jax(flatten_params(dec_np), d),
                               mc)
@@ -785,6 +1177,17 @@ def phase_small_input(dev):
         fail("the card's render disagrees with the CPU path")
     if float(cpu.image.max() - cpu.image.min()) < 0.05:
         fail("the small-input render is blank")
+
+    cpu, gpu = evals
+    err = float((gpu["image"].cpu() - cpu["image"]).abs().max())
+    print(f"[small] 96x64 eval render (EvalRenderer, K3 pack8), card vs CPU "
+          f"path: max |image err| {err:.3g}, num_instances "
+          f"{int(gpu['num_instances'])}/{int(cpu['num_instances'])}",
+          flush=True)
+    if err > 2e-4 or int(gpu["num_instances"]) != int(cpu["num_instances"]):
+        fail("the card's eval render disagrees with the CPU path")
+    if float(cpu["image"].max() - cpu["image"].min()) < 0.05:
+        fail("the small-input eval render is blank")
 
     (loss_c, g_c), (loss_g, g_g) = steps
     worst = max((float((g_g[p] - g).abs().max())
@@ -819,24 +1222,22 @@ def main():
                       nlarge=2**13)
     anchors, decoders = load_map(map_path, dev)
     phase_kernels(anchors, decoders, mc, rc, dev)
+    k4 = phase_eval_kernels(anchors, decoders, mc, rc, dev)
     del anchors, decoders
-    phase_render_path(map_path, rc)
+    phase_render_path(map_path, rc, mc)
     launches = phase_train_path()
     kernels = phase_trained()
+    kernels["blend_eval"] = k4
     phase_densify()
     phase_small_input(dev)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    meta = {
-        "blend_fwd": ("segs_slam_tpu_torch/csrc/blend_fwd.cu",
-                      "segs_slam_tpu/ops/rasterizer/blend.py:361"),
-        "blend_bwd": ("segs_slam_tpu_torch/csrc/blend_bwd.cu",
-                      "segs_slam_tpu/ops/rasterizer/blend.py:515"),
-    }
+    # launches: the train_synthetic run (phase 5); K1, K2 and K3 numbers
+    # from the trained map (phase 6), K4's from the 640x480 view (phase 3)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0],
-         "replaces": meta[name][1], "launches": launches[name],
-         **kernels[name]} for name in KERNELS]}), flush=True)
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], **kernels[name]}
+        for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,9 @@ Port of segs_slam_tpu/apps/render_views.py (the viewer's renderFromPose
 equivalent, reference: src/gaussian_mapper.cpp:2484-2538). The JAX app reads
 an orbax TrainState, which needs JAX; this one reads a map file written by
 segs_slam_tpu_torch.io.convert.save_map (the state's anchors and decoders as
-numpy arrays). It renders through models/renderer.py:render, i.e. the f32
-binning and blend kernel K1.
+numpy arrays). As the JAX app does, it sizes the eval config on four of the
+orbit's views (calibrate_eval_config) and renders through EvalRenderer: the
+packed eval binning and kernel K3.
 
 Usage:
   python -m segs_slam_tpu_torch.apps.render_views --map map.npz --out frames/ \
@@ -27,7 +28,10 @@ from segs_slam_tpu_torch.core.camera import Camera
 from segs_slam_tpu_torch.core.keyframe import Keyframe
 from segs_slam_tpu_torch.io.convert import load_map
 from segs_slam_tpu_torch.io.png import write_png
-from segs_slam_tpu_torch.models.renderer import render
+from segs_slam_tpu_torch.models.renderer import (
+    EvalRenderer,
+    calibrate_eval_config,
+)
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
 
 
@@ -54,8 +58,9 @@ def orbit_poses(center, radius, height, n, look_at):
 
 def main(argv=None) -> list[dict]:
     """Render the orbit; returns one dict per view: image (3, H, W) float32
-    numpy, ms (render time to a synchronised result), num_compact,
-    num_instances, num_kmax_truncated."""
+    numpy, ms (render time to a synchronised result), pose (quat, trans),
+    raster_config (the calibrated eval config), num_compact, num_instances,
+    num_kmax_truncated."""
     p = argparse.ArgumentParser()
     p.add_argument("--map", required=True, help="map file (.npz, see "
                    "segs_slam_tpu_torch.io.convert)")
@@ -87,28 +92,35 @@ def main(argv=None) -> list[dict]:
     out.mkdir(parents=True, exist_ok=True)
     poses = orbit_poses(center, args.orbit_radius, -0.3, args.orbit_frames,
                         center + np.array([0, 0, 0.5]))
-    bg = torch.zeros(3, device=device)
+
+    def cam_inputs(i, q, t):
+        kf = Keyframe(kf_id=i, camera=cam, quat=q, trans=t)
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in kf.render_inputs().items()}
+
+    cal_cams = [cam_inputs(i, q, t) for i, (q, t) in
+                enumerate(poses[::max(1, len(poses) // 4)])]
+    rc = calibrate_eval_config(rc, mc, anchors, decoders, cal_cams[:4], w, h)
+    renderer = EvalRenderer(mc, rc, w, h, torch.zeros(3), device=device)
 
     views = []
-    with torch.inference_mode():
-        for i, (q, t) in enumerate(poses):
-            kf = Keyframe(kf_id=i, camera=cam, quat=q, trans=t)
-            cam_in = {k: torch.as_tensor(v, device=device)
-                      for k, v in kf.render_inputs().items()}
-            t0 = time.perf_counter()
-            res = render(anchors, decoders, cam_in, w, h, bg, mc, rc)
-            img = res.image.cpu().numpy()  # waits for the device
-            ms = (time.perf_counter() - t0) * 1e3
-            rgb8 = (np.clip(np.transpose(img, (1, 2, 0)), 0, 1) * 255
-                    ).astype(np.uint8)
-            write_png(out / f"view{i:04d}.png", rgb8)
-            views.append({
-                "image": img,
-                "ms": ms,
-                "num_compact": int(res.num_compact),
-                "num_instances": int(res.num_instances),
-                "num_kmax_truncated": int(res.num_kmax_truncated),
-            })
+    for i, (q, t) in enumerate(poses):
+        cam_in = cam_inputs(i, q, t)
+        t0 = time.perf_counter()
+        res = renderer.render_with_counts(anchors, decoders, cam_in)
+        img = res["image"].cpu().numpy()  # waits for the device
+        ms = (time.perf_counter() - t0) * 1e3
+        rgb8 = (np.clip(np.transpose(img, (1, 2, 0)), 0, 1) * 255
+                ).astype(np.uint8)
+        write_png(out / f"view{i:04d}.png", rgb8)
+        views.append({
+            "image": img,
+            "ms": ms,
+            "pose": (q, t),
+            "raster_config": rc,
+            **{k: int(res[k]) for k in ("num_compact", "num_instances",
+                                        "num_kmax_truncated")},
+        })
     print(f"wrote {len(poses)} views to {out}")
     return views
 

@@ -3,7 +3,8 @@ dataset: the port of segs_slam_tpu/apps/train_synthetic.py.
 
 Builds a scene, renders its ground-truth views, seeds anchors from a noisy
 subsample of the true geometry, runs the optimisation with densification,
-and reports PSNR/SSIM over the training views.
+and reports PSNR/SSIM over the training views, rendered by the Trainer's
+EvalRenderer (the packed eval binning and kernel K3).
 
 Usage:
   python -m segs_slam_tpu_torch.apps.train_synthetic [--iters 3000]
@@ -100,6 +101,9 @@ def main(argv=None) -> dict:
     trainer, args = build_trainer(argv)
     psnr_init = trainer.evaluate()["psnr"]
     print(f"eval before training: psnr {psnr_init:.3f}", flush=True)
+    # the JAX app evaluates only after training, so its eval tiers are
+    # calibrated on the trained map: calibrate again after training here too
+    trainer.reset_eval_renderer()
 
     history = []
     t0 = time.time()

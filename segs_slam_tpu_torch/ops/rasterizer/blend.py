@@ -1,18 +1,25 @@
-"""Tile blend: kernels K1 (forward) and K2 (backward), their plain PyTorch
-versions, and the autograd.Function around the whole binned pipeline.
+"""Tile blend: kernels K1 (forward), K2 (backward), K3 and K4 (colour-only
+eval forwards), their plain PyTorch versions, the autograd.Function around
+the training pipeline and the eval pipeline `binned_blend_eval`.
 
 Port of segs_slam_tpu/ops/rasterizer/blend.py (`binned_blend`, a custom VJP
-over compaction + sort + the Pallas kernels `_fwd_kernel` / `_bwd_kernel`).
-The kernels are hand-written CUDA for Hopper in `csrc/blend_fwd.cu` and
-`csrc/blend_bwd.cu`; `blend_forward_reference` and `blend_backward_reference`
-compute the same functions in plain torch. `blend_forward` /
-`blend_backward` launch the kernels for CUDA tensors and take the plain
-versions only for tensors on the CPU.
+over compaction + sort + the Pallas kernels `_fwd_kernel` / `_bwd_kernel`;
+`binned_blend_eval` over the packed binning and `_fwd_kernel_eval_packed` /
+`_fwd_kernel_eval`). The kernels are hand-written CUDA for Hopper in
+`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu` and `csrc/blend_eval.cu`;
+`blend_forward_reference`, `blend_backward_reference`,
+`blend_forward_eval_packed_reference` and `blend_forward_eval_reference`
+compute the same functions in plain torch. The dispatchers (`blend_forward`,
+`blend_backward`, `blend_forward_eval_packed`, `blend_forward_eval`) launch
+the kernels for CUDA tensors and take the plain versions only for tensors on
+the CPU.
 
 Sorted feature rows (the [10, NK] array), and the rows of K2's per-instance
 gradient array:
   0: mean2d.x  1: mean2d.y  2: conic.a  3: conic.b  4: conic.c
   5: opacity   6: r  7: g  8: b  9: depth
+K3 reads the packed u32 columns of the eval binning instead (binning.py),
+as int32 bit patterns, with mean2d relative to the instance's tile.
 """
 
 from __future__ import annotations
@@ -24,8 +31,13 @@ import torch
 from segs_slam_tpu_torch.ops.cuda_lib import check, load_library
 from segs_slam_tpu_torch.ops.rasterizer.binning import (
     NPAY,
+    _f16_from_bits,
+    as_u32_bits,
+    bin_eval_direct,
     compact_gaussians,
+    compact_gaussians_packed,
     expand_and_sort,
+    expand_and_sort_packed,
 )
 from segs_slam_tpu_torch.ops.rasterizer.preprocess import RasterConfig
 
@@ -55,11 +67,13 @@ def _tile_groups(counts: list[int], npix: int):
 
 
 def _group_alpha(feats, tile_start, counts, t0, t1, length, tiles_x,
-                 config: RasterConfig):
+                 config: RasterConfig, tile_local: bool = False):
     """Per-(tile, pixel, instance) quantities of tiles [t0, t1), padded to
     `length` instances: (idx [B, L] columns into feats, inside [B, L],
-    f [10, B, L], dx, dy [B, P, L] = mean2d - pixel, opg = op * G unclamped
-    and alpha, both zero where the forward skips the instance)."""
+    f [rows, B, L], dx, dy [B, P, L] = mean2d - pixel, opg = op * G
+    unclamped and alpha, both zero where the forward skips the instance).
+    With tile_local, mean2d is relative to its tile's corner (K3's input),
+    and so are the pixels."""
     dev = feats.device
     b = config.tile
     p = torch.arange(b * b, device=dev)
@@ -69,6 +83,8 @@ def _group_alpha(feats, tile_start, counts, t0, t1, length, tiles_x,
     f = feats[:, idx]  # [10, B, L]
 
     t = torch.arange(t0, t1, device=dev)
+    if tile_local:
+        t = torch.zeros_like(t)
     pix_x = ((t % tiles_x) * b).float()[:, None] + (p % b).float()[None, :]
     pix_y = ((t // tiles_x) * b).float()[:, None] + (p // b).float()[None, :]
     dx = f[F_X][:, None, :] - pix_x[:, :, None]  # [B, P, L]
@@ -83,15 +99,14 @@ def _group_alpha(feats, tile_start, counts, t0, t1, length, tiles_x,
             torch.where(ok, alpha, 0.0))
 
 
-def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
-                            config: RasterConfig):
-    """Plain torch K1: per tile, alpha for every (pixel, instance), then
-    T = cumprod(1 - alpha), accept = T >= transmittance_min (a prefix, which
-    is the reference's latch), weights alpha * T_before.
-
-    feats [10, NK] f32 in (tile, depth) order; tile_start/stop [nt] int32;
-    bg [3]. Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
-    n_contrib [nt,1,P] int32) with P = tile * tile."""
+def _forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                       config: RasterConfig, tile_local: bool = False,
+                       with_depth: bool = True):
+    """The plain version of the forward kernels: per tile, alpha for every
+    (pixel, instance), then T = cumprod(1 - alpha), accept = T >=
+    transmittance_min (a prefix, which is the reference's latch), weights
+    alpha * T_before. Returns (color, final_T, depth (zeros without
+    with_depth), n_contrib)."""
     dev = feats.device
     nt = tile_start.shape[0]
     npix = config.tile * config.tile
@@ -103,7 +118,8 @@ def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
     counts = (tile_stop - tile_start).tolist()
     for t0, t1, length in _tile_groups(counts, npix):
         _, _, f, _, _, _, alpha = _group_alpha(
-            feats, tile_start, counts, t0, t1, length, tiles_x, config)
+            feats, tile_start, counts, t0, t1, length, tiles_x, config,
+            tile_local)
         cum = torch.cumprod(1.0 - alpha, dim=-1)  # T after each instance
         t_before = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]],
                              -1)
@@ -114,11 +130,64 @@ def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
         color[t0:t1] = (torch.einsum("bpl,cbl->bcp", w, rgb)
                         + bg.reshape(1, 3, 1) * T[:, None, :])
         final_t[t0:t1] = T[:, None, :]
-        depth[t0:t1] = torch.einsum("bpl,bl->bp", w, f[F_D])[:, None, :]
+        if with_depth:
+            depth[t0:t1] = torch.einsum("bpl,bl->bp", w, f[F_D])[:, None, :]
         rank = torch.arange(1, length + 1, dtype=torch.int32, device=dev)
         ncontrib[t0:t1] = torch.where(accept & (alpha > 0.0), rank, 0).amax(
             dim=-1)[:, None, :]
     return color, final_t, depth, ncontrib
+
+
+def blend_forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                            config: RasterConfig):
+    """Plain torch K1 (see `_forward_reference`).
+
+    feats [10, NK] f32 in (tile, depth) order; tile_start/stop [nt] int32;
+    bg [3]. Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
+    n_contrib [nt,1,P] int32) with P = tile * tile."""
+    return _forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                              config)
+
+
+_INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32).item()
+_INV2047 = torch.tensor(1.0 / 2047.0, dtype=torch.float32).item()
+
+
+def decode_eval_columns(cols: torch.Tensor, pack8: bool) -> torch.Tensor:
+    """K3's decode, for its plain version: packed columns (int32 bit
+    patterns, [5, NK], or [4, NK] under pack8) -> [9, NK] f32 rows x, y
+    (tile-local), conic a/b/c, opacity, r, g, b. f16 halves decode exactly;
+    pack8's 11-bit opacity and bytes as v * (1/2047) and v * (1/255) in
+    f32, the JAX kernel's constants (blend.py:212-220)."""
+    u = cols.to(torch.int64) & 0xFFFFFFFF
+    lo = [_f16_from_bits(c) for c in u]
+    hi = [_f16_from_bits(c >> 16) for c in u]
+    rows = [lo[0], hi[0], lo[1], hi[1], lo[2]]
+    if pack8:
+        rows += [((u[2] >> 16) & 0x7FF).to(torch.float32) * _INV2047,
+                 *(((u[3] >> s) & 0xFF).to(torch.float32) * _INV255
+                   for s in (0, 8, 16))]
+    else:
+        rows += [hi[2], lo[3], hi[3], lo[4]]
+    return torch.stack(rows)
+
+
+def blend_forward_eval_packed_reference(cols, tile_start, tile_stop, bg,
+                                        tiles_x, config: RasterConfig):
+    """Plain torch K3: the colour of `_forward_reference` over the decoded
+    columns, pixels and mean2d both tile-local. cols: [5, NK] int32 (f16
+    layout) or [4, NK] (config.pack8). Returns color [nt, 3, P]."""
+    return _forward_reference(decode_eval_columns(cols, config.pack8),
+                              tile_start, tile_stop, bg, tiles_x, config,
+                              tile_local=True, with_depth=False)[0]
+
+
+def blend_forward_eval_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                                 config: RasterConfig):
+    """Plain torch K4: the colour of `blend_forward_reference` (feats [10,
+    NK] f32, the depth row unread). Returns color [nt, 3, P]."""
+    return _forward_reference(feats, tile_start, tile_stop, bg, tiles_x,
+                              config, with_depth=False)[0]
 
 
 def blend_backward_reference(feats, tile_start, tile_stop, bg, tiles_x,
@@ -180,10 +249,10 @@ def blend_backward_reference(feats, tile_start, tile_stop, bg, tiles_x,
     return out
 
 
-def _check_inputs(feats, tile_start, tile_stop, bg, tiles_x):
-    if feats.dtype != torch.float32 or feats.dim() != 2 \
-            or feats.shape[0] != NFEAT:
-        raise ValueError(f"feats must be [{NFEAT}, NK] float32, got "
+def _check_inputs(feats, tile_start, tile_stop, bg, tiles_x, rows=NFEAT,
+                  dtype=torch.float32):
+    if feats.dtype != dtype or feats.dim() != 2 or feats.shape[0] != rows:
+        raise ValueError(f"feats must be [{rows}, NK] {dtype}, got "
                          f"{tuple(feats.shape)} {feats.dtype}")
     for name, x in (("tile_start", tile_start), ("tile_stop", tile_stop)):
         if x.dtype != torch.int32 or x.shape != tile_start.shape \
@@ -237,6 +306,30 @@ def blend_backward(feats, tile_start, tile_stop, bg, tiles_x,
     raise ValueError(f"no blend for device {feats.device}")
 
 
+def blend_forward_eval_packed(cols, tile_start, tile_stop, bg, tiles_x,
+                              config: RasterConfig):
+    """K3 on CUDA tensors; its plain version on CPU tensors. Same arguments
+    and output as `blend_forward_eval_packed_reference`."""
+    args = (cols, tile_start, tile_stop, bg, tiles_x, config)
+    if cols.is_cuda:
+        return blend_forward_eval_packed_cuda(*args)
+    if cols.device.type == "cpu":
+        return blend_forward_eval_packed_reference(*args)
+    raise ValueError(f"no blend for device {cols.device}")
+
+
+def blend_forward_eval(feats, tile_start, tile_stop, bg, tiles_x,
+                       config: RasterConfig):
+    """K4 on CUDA tensors; its plain version on CPU tensors. Same arguments
+    and output as `blend_forward_eval_reference`."""
+    args = (feats, tile_start, tile_stop, bg, tiles_x, config)
+    if feats.is_cuda:
+        return blend_forward_eval_cuda(*args)
+    if feats.device.type == "cpu":
+        return blend_forward_eval_reference(*args)
+    raise ValueError(f"no blend for device {feats.device}")
+
+
 def _library(name: str, argtypes: list):
     lib = load_library(name)
     fn = getattr(lib, f"segs_{name}")
@@ -251,6 +344,10 @@ _FWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                  _P, _P, _P, _P, _P]
 _BWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
                  _P, _P, _P, _P, _P, _P, _P]
+_EVAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
+                  _F, _P, _P]
+# csrc/blend_eval.cu's input layouts
+_EVAL_F32, _EVAL_F16, _EVAL_PACK8 = 0, 1, 2
 
 
 def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
@@ -329,6 +426,61 @@ def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
 blend_backward_cuda.launches = 0  # K2 launches, read by chip_smoke.py
 
 
+def _launch_eval(feats, layout, tile_start, tile_stop, bg, tiles_x,
+                 config: RasterConfig):
+    """One launch of csrc/blend_eval.cu (K3 or K4, by layout) on the
+    current stream; returns color [nt, 3, P]."""
+    npix = _check_cuda_launch(feats, config)
+    lib, fn = _library("blend_eval", _EVAL_ARGTYPES)
+    feats = feats.contiguous()
+    tile_start = tile_start.contiguous()
+    tile_stop = tile_stop.contiguous()
+    bg = bg.reshape(3).contiguous()
+    nt = tile_start.shape[0]
+    color = torch.empty((nt, 3, npix), dtype=torch.float32,
+                        device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        code = fn(
+            feats.data_ptr(), layout, feats.shape[1], tile_start.data_ptr(),
+            tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
+            config.alpha_min, config.alpha_clamp, config.transmittance_min,
+            color.data_ptr(), stream)
+    check(lib, code, "blend_eval launch")
+    return color
+
+
+def blend_forward_eval_packed_cuda(cols, tile_start, tile_stop, bg, tiles_x,
+                                   config: RasterConfig):
+    """Launch K3 (csrc/blend_eval.cu, the f16 or the pack8 layout as
+    config.pack8 says) on the current stream. Raises on a non-CUDA input or
+    a failed launch; never falls back."""
+    rows = 4 if config.pack8 else 5
+    _check_inputs(cols, tile_start, tile_stop, bg, tiles_x, rows, torch.int32)
+    color = _launch_eval(cols, _EVAL_PACK8 if config.pack8 else _EVAL_F16,
+                         tile_start, tile_stop, bg, tiles_x, config)
+    blend_forward_eval_packed_cuda.launches += 1
+    return color
+
+
+blend_forward_eval_packed_cuda.launches = 0  # K3 launches, read by chip_smoke
+
+
+def blend_forward_eval_cuda(feats, tile_start, tile_stop, bg, tiles_x,
+                            config: RasterConfig):
+    """Launch K4 (csrc/blend_eval.cu, the f32 layout) on the current
+    stream. Raises on a non-CUDA input or a failed launch; never falls
+    back."""
+    _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
+    color = _launch_eval(feats, _EVAL_F32, tile_start, tile_stop, bg,
+                         tiles_x, config)
+    blend_forward_eval_cuda.launches += 1
+    return color
+
+
+blend_forward_eval_cuda.launches = 0  # K4 launches, read by chip_smoke.py
+
+
 class _BinnedBlend(torch.autograd.Function):
     """Compaction + expansion + sort + K1 forward; K2 + the gradient routing
     of the JAX `_binned_blend_bwd` backward."""
@@ -390,3 +542,36 @@ def binned_blend(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     rest = {k: v for k, v in aux.items() if k != "depth"}
     return _BinnedBlend.apply(feats, aux["depth"], bg.to(torch.float32), rest,
                               config, tiles_x, tiles_y)
+
+
+def binned_blend_eval(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
+                      config: RasterConfig, tiles_x: int, tiles_y: int, *,
+                      packed_kernel: bool = True):
+    """The JAX `binned_blend_eval`: the no-gradient blend over the packed
+    eval binning. With config.sel_direct, one selection sort over the raw
+    rows (binning.bin_eval_direct) feeds K3; otherwise the packed compaction
+    and instance sort feed K3 or, with packed_kernel=False, the unpacked f32
+    rows feed K4 (JAX hard-codes packed_kernel = True).
+
+    Arguments as `binned_blend`. Returns (color [nt,3,P], None, None, None,
+    num_instances, num_compact): the eval kernels compute no final_T, depth
+    or n_contrib image (JAX returns zeros there)."""
+    bg = bg.to(torch.float32)
+    with torch.no_grad():
+        if config.sel_direct:
+            if not packed_kernel:
+                raise ValueError("the sel_direct binning feeds the packed "
+                                 "kernel only")
+            cols, start, stop, num_instances, num_compact = bin_eval_direct(
+                feats, aux, tiles_x, tiles_y, config, return_packed=True)
+        else:
+            pc = compact_gaussians_packed(feats, aux, config)
+            cols, start, stop, num_instances, _ = expand_and_sort_packed(
+                pc, tiles_x, tiles_y, config, return_packed=packed_kernel)
+            num_compact = pc.num_valid
+        if packed_kernel:
+            color = blend_forward_eval_packed(as_u32_bits(cols), start, stop,
+                                              bg, tiles_x, config)
+        else:
+            color = blend_forward_eval(cols, start, stop, bg, tiles_x, config)
+    return color, None, None, None, num_instances, num_compact

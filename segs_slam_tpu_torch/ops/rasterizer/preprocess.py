@@ -24,9 +24,10 @@ class RasterConfig:
     visible-gaussian compaction; kmax = max tiles per gaussian (rect clamped
     around the centre); ksmall/nlarge = dual-rate expansion (every gaussian
     gets ksmall slots, the nlarge largest footprints get up to kmax). The
-    3-tier, kanchor, sel_direct, pack8 and packed_train fields belong to the
-    packed eval/train binning, which this package does not implement yet;
-    the blend rejects configs that turn them on.
+    3-tier (kmid/nmid), sel_direct and pack8 fields drive the packed eval
+    binning (binning.py, blend.py:binned_blend_eval; `eval_variant` turns
+    them on). kanchor and packed_train are not implemented: the eval binning
+    rejects kanchor and the training blend rejects every packed field.
     """
 
     tile: int = 16
@@ -74,6 +75,24 @@ class RasterConfig:
         tx = (width + self.tile - 1) // self.tile
         ty = (height + self.tile - 1) // self.tile
         return tx, ty
+
+    def eval_variant(self, width: int, height: int) -> "RasterConfig":
+        """The eval-path upgrade of this (training) config, as the JAX
+        package chooses it: 3-tier expansion, direct-selection binning and
+        byte-packed colours (sel_direct + pack8), with nmid = compact / 8 and
+        nlarge = compact / 32 as floors. Returns self unchanged where the
+        packed layouts do not fit: tiles other than 16 px, a grid over 63x31
+        tiles, or kmax outside 6..31."""
+        tx, ty = self.grid(width, height)
+        if (self.tile != 16 or tx > 63 or ty > 31 or self.kmax > 31
+                or self.kmax < 6):
+            return self
+        nmid = max(self.nmid, self.compact // 8)
+        nlarge = min(nmid, max(self.nlarge if self.ksmall else 0,
+                               self.compact // 32))
+        return dataclasses.replace(
+            self, sel_direct=True, pack8=True, packed_train=False,
+            ksmall=2, kmid=self.kmax // 2, nmid=nmid, nlarge=nlarge)
 
     @property
     def max_instances(self) -> int:

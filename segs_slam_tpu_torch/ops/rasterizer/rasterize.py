@@ -48,11 +48,67 @@ def blend_inputs(proj, opacities, colors, mean2d_offset=None):
     return feats, aux
 
 
-def _tiles_to_image(x, tx, ty, b, width, height):
+def tiles_to_image(x, tx, ty, b, width, height):
     """[nt, C, b*b] tile-major -> [C, H, W]."""
     c = x.shape[1]
     return (x.reshape(ty, tx, c, b, b).permute(2, 0, 3, 1, 4)
             .reshape(c, ty * b, tx * b)[:, :height, :width])
+
+
+def project(
+    means3d: torch.Tensor,  # (N, 3)
+    scales: torch.Tensor,  # (N, 3) linear (already exp'd)
+    rotations: torch.Tensor,  # (N, 4) normalized quats (w,x,y,z)
+    opacities: torch.Tensor,  # (N,) or (N, 1)
+    colors: torch.Tensor,  # (N, 3) precomputed colors
+    world_view_transform: torch.Tensor,  # (4, 4) W2C^T
+    full_proj_transform: torch.Tensor,  # (4, 4)
+    width: int,
+    height: int,
+    tan_fovx,
+    tan_fovy,
+    config: RasterConfig = RasterConfig(),
+    valid: torch.Tensor | None = None,  # (N,) bool mask for padded buffers
+    mean2d_offset: torch.Tensor | None = None,  # (N, 2)
+    scale_modifier: float = 1.0,
+):
+    """The front half of `rasterize`: (GaussianProjection, feats, aux), the
+    blends' inputs (see `blend_inputs`)."""
+    cov3d = compute_cov3d(scales, rotations, scale_modifier)
+    proj = preprocess_gaussians(
+        means3d, cov3d, world_view_transform, full_proj_transform, width,
+        height, tan_fovx, tan_fovy, config, valid_in=valid)
+    feats, aux = blend_inputs(proj, opacities, colors, mean2d_offset)
+    return proj, feats, aux
+
+
+def blend_projected(proj, feats, aux, bg: torch.Tensor, width: int,
+                    height: int, config: RasterConfig) -> dict:
+    """The back half of `rasterize`: the differentiable blend of `project`'s
+    outputs, as images."""
+    tx, ty = config.grid(width, height)
+    color, final_t, depth_img, ncontrib, num_instances, num_compact = (
+        binned_blend(feats, aux, bg, config, tx, ty))
+
+    b = config.tile
+    if config.ksmall:
+        num_large = ((torch.clamp(proj.tiles_touched, max=config.kmax)
+                      > config.ksmall) & (proj.radius > 0)).sum(
+                          dtype=torch.int32)
+    else:
+        num_large = torch.zeros((), dtype=torch.int32, device=color.device)
+    return {
+        "image": tiles_to_image(color, tx, ty, b, width, height),
+        "radii": proj.radius,
+        "final_T": tiles_to_image(final_t, tx, ty, b, width, height)[0],
+        "n_contrib": tiles_to_image(ncontrib, tx, ty, b, width, height)[0],
+        "depth_map": tiles_to_image(depth_img, tx, ty, b, width, height)[0],
+        "num_instances": num_instances,
+        "num_compact": num_compact,
+        "num_kmax_truncated": proj.kmax_truncated,
+        "num_large": num_large,
+        "depth": proj.depth,
+    }
 
 
 def rasterize(
@@ -76,35 +132,11 @@ def rasterize(
     """Returns dict with image (3, H, W), radii (N,), final_T, n_contrib,
     depth_map, num_instances, num_compact, num_kmax_truncated, num_large,
     depth; the same keys and layouts as the JAX version."""
-    cov3d = compute_cov3d(scales, rotations, scale_modifier)
-    proj = preprocess_gaussians(
-        means3d, cov3d, world_view_transform, full_proj_transform, width,
-        height, tan_fovx, tan_fovy, config, valid_in=valid)
-    feats, aux = blend_inputs(proj, opacities, colors, mean2d_offset)
-
-    tx, ty = config.grid(width, height)
-    color, final_t, depth_img, ncontrib, num_instances, num_compact = (
-        binned_blend(feats, aux, bg, config, tx, ty))
-
-    b = config.tile
-    if config.ksmall:
-        num_large = ((torch.clamp(proj.tiles_touched, max=config.kmax)
-                      > config.ksmall) & (proj.radius > 0)).sum(
-                          dtype=torch.int32)
-    else:
-        num_large = torch.zeros((), dtype=torch.int32, device=color.device)
-    return {
-        "image": _tiles_to_image(color, tx, ty, b, width, height),
-        "radii": proj.radius,
-        "final_T": _tiles_to_image(final_t, tx, ty, b, width, height)[0],
-        "n_contrib": _tiles_to_image(ncontrib, tx, ty, b, width, height)[0],
-        "depth_map": _tiles_to_image(depth_img, tx, ty, b, width, height)[0],
-        "num_instances": num_instances,
-        "num_compact": num_compact,
-        "num_kmax_truncated": proj.kmax_truncated,
-        "num_large": num_large,
-        "depth": proj.depth,
-    }
+    proj, feats, aux = project(
+        means3d, scales, rotations, opacities, colors, world_view_transform,
+        full_proj_transform, width, height, tan_fovx, tan_fovy, config,
+        valid, mean2d_offset, scale_modifier)
+    return blend_projected(proj, feats, aux, bg, width, height, config)
 
 
 def visible_filter(

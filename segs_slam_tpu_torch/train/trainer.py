@@ -7,12 +7,14 @@ src/gaussian_mapper.cpp:797-820 + trainForOneIteration :823-1031). Steps are
 enqueued on the device without host syncs; the host reads the device only
 at log points and inside densification.
 
-Not ported yet: in-step pose optimisation (`optimize_poses`, pose rows,
-`refine_keyframe_pose`, `fold_pose_deltas`: the SLAM slice), Gaussian-pyramid
-levels, and the eval renderer with the packed binning (kernel K3, the eval
-slice): `evaluate` and `render_keyframe` render through the f32 `render`
-(kernel K1), which the JAX package computes as EvalRenderer(...,
-packed=False).
+Evaluation (`evaluate`, `render_keyframe`, `render_and_measure_keyframe`)
+renders through `EvalRenderer`: the packed eval binning and kernel K3, with
+the tier sizes calibrated on the map's own footprints.
+
+Not ported yet: in-step pose optimisation (`optimize_poses`, pose rows and
+pose deltas, `refine_keyframe_pose`, `fold_pose_deltas`: the SLAM slice) and
+Gaussian-pyramid levels. Without pose deltas a keyframe renders at its own
+pose, where the JAX Trainer's `refined_cam` would add the delta.
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ from segs_slam_tpu_torch.io.ply import save_anchor_ply
 from segs_slam_tpu_torch.models.anchors import empty_state, insert_points
 from segs_slam_tpu_torch.models.config import ModelConfig
 from segs_slam_tpu_torch.models.decoders import Decoders
-from segs_slam_tpu_torch.models.renderer import render
+from segs_slam_tpu_torch.models.renderer import (
+    EvalRenderer,
+    calibrate_eval_config,
+)
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
 from segs_slam_tpu_torch.slam.scene import Scene
 from segs_slam_tpu_torch.train import losses
@@ -73,6 +78,7 @@ class Trainer:
         # sensor-depth planes for lambda_depth (zeros for a keyframe with
         # no depth)
         self._depth_cache: dict[int, torch.Tensor] = {}
+        self._eval_renderer: EvalRenderer | None = None
 
     def _build_step(self):
         self._step = make_train_step(self.model_config, self.opt_config,
@@ -239,27 +245,54 @@ class Trainer:
 
     # --- evaluation (reference: renderAndRecordKeyframe,
     # src/gaussian_mapper.cpp:1769-1907) ---
+    def eval_renderer(self) -> EvalRenderer:
+        """The cached EvalRenderer: RasterConfig.eval_variant with its tier
+        prefixes calibrated on up to four keyframes' views. As in the JAX
+        Trainer, the calibration runs once, at the first evaluation, and is
+        not redone when the map grows or densifies (`reset_eval_renderer`
+        drops it)."""
+        if self._eval_renderer is None:
+            kfs = [kf for _, kf in sorted(self.scene.keyframes.items())]
+            cams = [self._kf_inputs(kf)[0]
+                    for kf in kfs[::max(1, len(kfs) // 4)][:4]]
+            rc = calibrate_eval_config(
+                self.raster_config, self.model_config, self.state.anchors,
+                self.state.decoders, cams, self.width, self.height,
+            ) if cams else self.raster_config.eval_variant(self.width,
+                                                           self.height)
+            self._eval_renderer = EvalRenderer(
+                self.model_config, rc, self.width, self.height, self._bg,
+                device=self.device)
+        return self._eval_renderer
+
+    def reset_eval_renderer(self) -> None:
+        """Drop the cached EvalRenderer: the next evaluation calibrates
+        anew."""
+        self._eval_renderer = None
+
     def render_keyframe(self, kf: Keyframe) -> torch.Tensor:
-        """The keyframe's (3, H, W) render through the f32 render (K1)."""
+        """The keyframe's (3, H, W) eval render."""
         cam, _ = self._kf_inputs(kf)
+        return self.eval_renderer()(self.state.anchors, self.state.decoders,
+                                    cam)
+
+    def render_and_measure_keyframe(self, kf: Keyframe):
+        """(masked image, psnr, ssim, psnr_gs) of the keyframe's eval
+        render, as device tensors (no host sync). The mask keeps the pixels
+        where the ground truth is not black."""
+        img = self.render_keyframe(kf)
+        _, gt = self._kf_inputs(kf)
         with torch.no_grad():
-            return render(self.state.anchors, self.state.decoders, cam,
-                          self.width, self.height, self._bg,
-                          self.model_config, self.raster_config).image
+            mask = (gt != 0.0).any(dim=0, keepdim=True).float()
+            img_m, gt_m = img * mask, gt * mask
+            return (img_m, losses.psnr(img_m, gt_m), losses.ssim(img_m, gt_m),
+                    losses.psnr_gaussian_splatting(img_m, gt_m))
 
     def evaluate(self) -> dict:
-        """Masked PSNR, SSIM and the per-channel PSNR over all keyframes; one
-        host sync at the end."""
-        outs = []
-        for kf in self.scene.keyframes.values():
-            img = self.render_keyframe(kf)
-            _, gt = self._kf_inputs(kf)
-            with torch.no_grad():
-                mask = (gt != 0.0).any(dim=0, keepdim=True).float()
-                img_m, gt_m = img * mask, gt * mask
-                outs.append(torch.stack([
-                    losses.psnr(img_m, gt_m), losses.ssim(img_m, gt_m),
-                    losses.psnr_gaussian_splatting(img_m, gt_m)]))
+        """Masked PSNR, SSIM and the per-channel PSNR over all keyframes;
+        one host sync at the end."""
+        outs = [torch.stack(self.render_and_measure_keyframe(kf)[1:])
+                for kf in self.scene.keyframes.values()]
         vals = torch.stack(outs).cpu().numpy().astype(np.float64)
         return {
             "psnr": float(vals[:, 0].mean()),

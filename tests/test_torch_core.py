@@ -96,11 +96,14 @@ TRAINING_SLICE = (
     "ops.rasterizer.dense", "train.config", "train.densify", "train.losses",
     "train.optimizer", "train.schedules", "train.step", "train.trainer",
     "slam.scene", "io.ply", "utils.synthetic", "apps.train_synthetic")
+EVAL_SLICE = ("eval", "eval.metrics", "eval.recorder", "eval.harness",
+              "models.renderer", "ops.rasterizer.binning",
+              "apps.render_views")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training slice's included,
-    leaves JAX out of sys.modules."""
+    """Importing every module of the port, the training and eval slices'
+    included, leaves JAX out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import segs_slam_tpu_torch as pkg\n"
@@ -113,8 +116,8 @@ def test_port_imports_no_jax():
         "need = {'segs_slam_tpu_torch.' + n for n in (%r)}\n"
         "missing = sorted(need - set(names))\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 38 else 0)\n"
-    ) % (TRAINING_SLICE,)
+        "sys.exit(1 if bad or missing or len(names) < 42 else 0)\n"
+    ) % (TRAINING_SLICE + EVAL_SLICE,)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
