@@ -17,8 +17,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      calibrate_eval_config's sizes for that view, K3 on the pack8 columns of
      the direct selection, K3 on the f16 columns of the compaction branch
      and K4 on its f32 rows, each against its plain version (colour within
-     2e-4 on every pixel); CUDA-event timings, bounds, and per-layer
-     breakdowns of the f32 render and of the eval render;
+     2e-4 on every pixel); each kernel's device time (the mean duration
+     torch.profiler records for its __global__ function over at least 20
+     recorded launches)
+     beside its call time (CUDA events around one wrapper call, host work
+     included), its bound, the instances a tile (mean, p99, max) and the
+     instances its walk reaches; per-layer breakdowns (CUDA events) of the
+     f32 render and of the eval render;
   4. render path: the map rendered by the render_views app (8 orbit views
      at 480x480, calibrate_eval_config + EvalRenderer); images finite, in
      [0, 1] and not blank, K3 launched once per view and no other kernel;
@@ -40,7 +45,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Then evaluate() (K3 once per keyframe, K1 never), K3 against its plain
      version on the 24 keyframes' own inputs, again with the opacities
      raised, and record_all_keyframes' files read back by the harness. The
-     kernels' times and bounds on those inputs go into the kernels line;
+     kernels' device and call times (as in phase 3, at least 20 recorded
+     launches on each input) and bounds on those inputs go into the kernels
+     line;
   7. densify: a Trainer at the same width whose densification runs four
      times in 55 iterations; active slots contiguous, parameters finite,
      n_active changed, the loss after it finite; one adjust timed;
@@ -48,8 +55,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      small map on the card against the CPU path (the plain versions the CPU
      tests hold to the JAX package): images atol 2e-4, per-leaf gradients
      within 2e-4 of the leaf's largest, loss within rtol 1e-5.
-Prints a JSON line with each kernel's numbers, then, as the last line,
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Then ranks the kernels by the device time the main path loses in them
+(launches x (device ms - bound ms)) and prints a JSON line with each
+kernel's numbers ("ms" is its device time, "call_ms" its call time), then,
+as the last line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +93,13 @@ KERNELS = {
                    "segs_slam_tpu/ops/rasterizer/blend.py:720"),
 }
 
+# each kernel's __global__ function, as the profiler names its launches
+KERNEL_FUNCS = {"blend_fwd": "blend_fwd_kernel",
+                "blend_bwd": "blend_bwd_kernel",
+                "blend_eval_packed": "blend_eval_kernel",
+                "blend_eval": "blend_eval_kernel"}
+DEVICE_REPS = 20  # recorded launches an input for a kernel's device ms
+
 TRAINED_STEPS = 24
 LAYERS = ("forward", "loss", "backward", "adam")
 
@@ -116,58 +132,24 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def seeded_map(mc, n_active: int, seed: int):
-    """Anchors as bench.py places them (uniform in a 8 x 6 x 11.5 m box in
-    front of the origin, offsets N(0, 0.3), features N(0, 0.1), scales 0.05)
-    and decoders drawn from U(+-1/sqrt(fan_in)), as numpy arrays."""
-    rng = np.random.default_rng(seed)
-    cap, k, f = mc.capacity, mc.n_offsets, mc.feat_dim
-    rot = np.zeros((cap, 4), np.float32)
-    rot[:, 0] = 1.0
-    active = np.zeros(cap, bool)
-    active[:n_active] = True
-    anchors = {
-        "anchor": rng.uniform([-4, -3, 0.5], [4, 3, 12], (cap, 3)),
-        "offset": rng.normal(0, 0.3, (cap, k, 3)),
-        "feat": rng.normal(0, 0.1, (cap, f)),
-        "scaling": np.full((cap, 6), np.log(0.05)),
-        "rotation": rot,
-        "opacity": np.full((cap, 1), np.log(0.1 / 0.9)),
-        "active": active,
-    }
-    anchors = {n: v if v.dtype == bool else v.astype(np.float32)
-               for n, v in anchors.items()}
-
-    def linear(d_in, d_out):
-        b = 1.0 / np.sqrt(d_in)
-        return {"w": rng.uniform(-b, b, (d_in, d_out)).astype(np.float32),
-                "b": rng.uniform(-b, b, (d_out,)).astype(np.float32)}
-
-    decoders = {
-        "opacity": {"l1": linear(mc.opacity_in, f), "l2": linear(f, k)},
-        "cov": {"l1": linear(mc.cov_in, f), "l2": linear(f, 7 * k)},
-        "color": {"l1": linear(mc.color_in, f), "l2": linear(f, 3 * k)},
-        "appearance": linear(7, mc.appearance_dim),
-        "embedding": {"table": rng.normal(
-            size=(mc.embedding_dim, mc.appearance_dim)).astype(np.float32)},
-    }
-    return anchors, decoders
-
-
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    """Median of `reps` CUDA-event timings of one fn() call, after warm-up:
+    for a kernel, its wrapper's call_ms (host work included)."""
+    from segs_slam_tpu_torch.utils.kernel_timing import event_ms
+
+    return event_ms(fn, reps, warmup)
+
+
+def kernel_ms(calls, name: str) -> float:
+    """A kernel's device time alone (ms): the mean duration of the CUDA
+    kernels named `name` (csrc's __global__ function) that torch.profiler
+    records over at least DEVICE_REPS launches on each of `calls`."""
+    from segs_slam_tpu_torch.utils.kernel_timing import device_ms
+
+    try:
+        return device_ms(calls, name, reps=DEVICE_REPS)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def bound(work: tuple[float, float], calls: int = 1) -> dict:
@@ -186,15 +168,18 @@ def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc,
     version's per-pair alphas and K1's n_contrib: `taken` (the pixel takes
     the instance), `clamped` (taken, with op G above the 0.99 clamp),
     `fwd_tested` (what K1 must test: every instance of the tile up to the
-    one at which the pixel latches, or all of them) and `bwd_tested` (what
-    K2 must test: the instances below the pixel's n_contrib)."""
+    one at which the pixel latches, or all of them), `bwd_tested` (what
+    K2 must test: the instances below the pixel's n_contrib) and
+    `fwd_walked` (the instances K1 must walk: over the tiles, the most that
+    one pixel of the tile tests)."""
     from segs_slam_tpu_torch.ops.rasterizer.blend import (
         _group_alpha,
         _tile_groups,
     )
 
     counts = (tile_stop - tile_start).tolist()
-    n = dict.fromkeys(("fwd_tested", "bwd_tested", "taken", "clamped"), 0)
+    n = dict.fromkeys(("fwd_tested", "bwd_tested", "taken", "clamped",
+                       "fwd_walked"), 0)
     for t0, t1, length in _tile_groups(counts, rc.tile * rc.tile):
         _, inside, _, _, _, opg, alpha = _group_alpha(
             feats, tile_start, counts, t0, t1, length, tiles_x, rc,
@@ -205,8 +190,10 @@ def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc,
         cum = torch.cumprod(1.0 - alpha, dim=-1)
         t_before = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]],
                              -1)
-        n["fwd_tested"] += int((inside[:, None, :]
-                                & (t_before >= rc.transmittance_min)).sum())
+        tested = (inside[:, None, :]
+                  & (t_before >= rc.transmittance_min)).sum(-1)
+        n["fwd_tested"] += int(tested.sum())
+        n["fwd_walked"] += int(tested.amax(-1).sum())
         n["bwd_tested"] += int(below.sum())
         n["taken"] += int(taken.sum())
         n["clamped"] += int((taken & (opg > rc.alpha_clamp)).sum())
@@ -214,22 +201,23 @@ def pair_counts(feats, tile_start, tile_stop, ncontrib, tiles_x, rc,
 
 
 def blend_work(tile_start, tile_stop, ncontrib, nk, pairs):
-    """K1's and K2's (bytes, FP32 operations) on one binned view. K1 reads
+    """K1's and K2's (bytes, FP32 operations) on one binned view, and the
+    instances K2 walks (each tile's up to its largest n_contrib). K1 reads
     each instance of a tile range once (40 B), the tile ranges and bg, and
     writes 24 B a pixel; K2 reads the instances up to its tile's largest
     n_contrib, 28 B of cotangents and forward outputs a pixel, and writes
     the [10, NK] gradient array once."""
     nt, npix = ncontrib.shape[0], ncontrib.shape[2]
     counts = (tile_stop - tile_start).long()
-    walked = float(torch.minimum(ncontrib.reshape(nt, -1).amax(dim=1).long(),
-                                 counts).sum())
+    walked = int(torch.minimum(ncontrib.reshape(nt, -1).amax(dim=1).long(),
+                               counts).sum())
     k1 = (int(counts.sum()) * 40 + nt * 8 + 12 + nt * npix * 24,
           OPS_PER_TEST * pairs["fwd_tested"]
           + K1_OPS_PER_TAKE * pairs["taken"])
     k2 = (walked * 40 + nt * npix * 28 + nt * 8 + 12 + 40 * nk,
           OPS_PER_TEST * pairs["bwd_tested"]
           + K2_OPS_PER_TAKE * pairs["taken"])
-    return k1, k2
+    return (k1, k2), walked
 
 
 def eval_work(tile_start, tile_stop, npix, bytes_per_instance, pairs):
@@ -422,6 +410,7 @@ def phase_kernels(anchors, decoders, mc, rc, dev):
         blend_forward_reference,
     )
     from segs_slam_tpu_torch.ops.rasterizer.rasterize import blend_inputs
+    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
 
     w, h = 640, 480
     cam = Camera(camera_id=0, width=w, height=h, fx=500.0, fy=500.0,
@@ -461,20 +450,26 @@ def phase_kernels(anchors, decoders, mc, rc, dev):
         args = (b.feats_sorted, b.tile_start, b.tile_stop, bg, tx, rc)
         fwd = check_forward(args)
         torch.cuda.synchronize()
-        k1_ms = cuda_ms(lambda: blend_forward_cuda(*args), reps=20,
-                        warmup=3)
+        k1_call_ms = cuda_ms(lambda: blend_forward_cuda(*args), reps=20,
+                             warmup=3)
+        k1_ms = kernel_ms([lambda: blend_forward_cuda(*args)],
+                          KERNEL_FUNCS["blend_fwd"])
         k1_plain_ms = cuda_ms(lambda: blend_forward_reference(*args),
                               reps=10)
-    layer_ms["blend_K1"] = k1_ms
+    layer_ms["blend_K1"] = k1_call_ms
 
     agree = fwd["equal"] / fwd["pixels"]
-    n_inst = int((b.tile_stop - b.tile_start).sum())
+    counts = tile_counts(b.tile_start, b.tile_stop)
+    n_inst = counts["total"]
     print(f"[kernel] 640x480, {nt} tiles, NK {b.feats_sorted.shape[1]}, "
           f"{n_inst} instances, num_compact {int(stages['compact'].num_valid)}"
-          f" of {rc.compact}; n_contrib equal on {agree * 100:.4f} % of "
-          f"pixels; max |err| {fwd['err']}", flush=True)
-    print(f"[kernel] K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms "
-          f"(CUDA events, median)", flush=True)
+          f" of {rc.compact}; instances a tile: mean {counts['mean']:.1f}, "
+          f"p99 {counts['p99']:.1f}, max {counts['max']}; n_contrib equal on "
+          f"{agree * 100:.4f} % of pixels; max |err| {fwd['err']}",
+          flush=True)
+    print(f"[kernel] K1 device {k1_ms:.4f} ms (profiler, mean of "
+          f"{DEVICE_REPS}+), call {k1_call_ms:.4f} ms, plain {k1_plain_ms:.3f}"
+          f" ms (CUDA events, median)", flush=True)
     print(f"[kernel] layers (ms, CUDA events, median of 10): "
           f"{json.dumps({k: round(v, 4) for k, v in layer_ms.items()})}",
           flush=True)
@@ -495,31 +490,40 @@ def phase_kernels(anchors, decoders, mc, rc, dev):
     with torch.inference_mode():
         bwd = check_backward(bargs)
         torch.cuda.synchronize()
-        k2_ms = cuda_ms(lambda: blend_backward_cuda(*bargs), reps=20,
-                        warmup=3)
+        k2_call_ms = cuda_ms(lambda: blend_backward_cuda(*bargs), reps=20,
+                             warmup=3)
+        k2_ms = kernel_ms([lambda: blend_backward_cuda(*bargs)],
+                          KERNEL_FUNCS["blend_bwd"])
         k2_plain_ms = cuda_ms(lambda: blend_backward_reference(*bargs),
                               reps=5)
         pairs = pair_counts(*args[:3], got[3], tx, rc)
-    print(f"[kernel] K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms (CUDA "
-          f"events, median); per-row max |err| / row max: "
+    print(f"[kernel] K2 device {k2_ms:.4f} ms (profiler, mean of "
+          f"{DEVICE_REPS}+), call {k2_call_ms:.4f} ms, plain {k2_plain_ms:.3f}"
+          f" ms (CUDA events, median); per-row max |err| / row max: "
           f"{[f'{e:.2e}' for e in bwd['row_err']]}", flush=True)
     if bwd["zero_rows"]:
         fail("a K2 gradient row is all zeros on the kernel-phase view")
     if not bwd["ok"]:
         fail(f"K2 disagrees with its plain version: {bwd['row_err']}")
-    k1_bound, k2_bound = map(bound, blend_work(
-        b.tile_start, b.tile_stop, got[3], b.feats_sorted.shape[1], pairs))
+    (k1_work, k2_work), k2_walked = blend_work(
+        b.tile_start, b.tile_stop, got[3], b.feats_sorted.shape[1], pairs)
+    k1_bound, k2_bound = bound(k1_work), bound(k2_work)
     print(f"[kernel] bounds: K1 {k1_bound['bound_ms']:.4f} ms "
           f"({k1_bound['bound_by']}), K2 {k2_bound['bound_ms']:.4f} ms "
-          f"({k2_bound['bound_by']}); (pixel, instance) pairs {pairs}",
-          flush=True)
+          f"({k2_bound['bound_by']}); instances walked: K1 "
+          f"{pairs['fwd_walked']}, K2 {k2_walked} of {n_inst}; (pixel, "
+          f"instance) pairs {pairs}", flush=True)
+    return {"blend_fwd": {"ms": k1_ms, "call_ms": k1_call_ms,
+                          "plain_ms": k1_plain_ms, **k1_bound},
+            "blend_bwd": {"ms": k2_ms, "call_ms": k2_call_ms,
+                          "plain_ms": k2_plain_ms, **k2_bound}}
 
 
 def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
     """K3 (pack8 and f16 columns) and K4 against their plain versions on
     the kernel phase's 640x480 view, at calibrate_eval_config's sizes for
-    that view, and the layers of one eval render. Returns K4's numbers for
-    the kernels line (no main path runs K4)."""
+    that view, and the layers of one eval render. Returns each input's
+    numbers (K4's go into the kernels line: no main path runs K4)."""
     import segs_slam_tpu_torch.ops.rasterizer.binning as binning
     from segs_slam_tpu_torch.core import Camera, Keyframe
     from segs_slam_tpu_torch.models.renderer import (
@@ -533,6 +537,7 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
         blend_forward_eval_reference,
     )
     from segs_slam_tpu_torch.ops.rasterizer.rasterize import project
+    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
 
     w, h = 640, 480
     cam = Camera(camera_id=0, width=w, height=h, fx=500.0, fy=500.0,
@@ -605,11 +610,15 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
         for name, (kind, kernel, plain, args) in inputs.items():
             res = check_eval(kind, args)
             torch.cuda.synchronize()
-            res["ms"] = cuda_ms(lambda: kernel(*args), reps=20, warmup=3)
+            res["call_ms"] = cuda_ms(lambda: kernel(*args), reps=20,
+                                     warmup=3)
+            res["ms"] = kernel_ms([lambda: kernel(*args)],
+                                  KERNEL_FUNCS[kind])
             res["plain_ms"] = cuda_ms(lambda: plain(*args), reps=5)
+            res["tiles"] = tile_counts(args[1], args[2])
             res.update(bound(res["work"]))
             results[name] = res
-        layer_ms["K3"] = results["K3 pack8"]["ms"]
+        layer_ms["K3"] = results["K3 pack8"]["call_ms"]
 
     print(f"[eval] 640x480: {int(n_inst)} instances of NK {cols.shape[1]}, "
           f"{int(n_valid)} live gaussians for compact {cal.compact}; layers "
@@ -618,9 +627,14 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
           f"{json.dumps({k: round(v, 4) for k, v in layer_ms.items()})}",
           flush=True)
     for name, r in results.items():
-        print(f"[eval] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms"
-              f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max |err| "
-              f"{r['max_abs_err']:.3g}; pairs {r['pairs']}; the latch leaves "
+        tc = r["tiles"]
+        print(f"[eval] {name}: device {r['ms']:.4f} ms (profiler, mean of "
+              f"{DEVICE_REPS}+), call {r['call_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); max |err| {r['max_abs_err']:.3g}; "
+              f"instances a tile: mean {tc['mean']:.1f}, p99 {tc['p99']:.1f},"
+              f" max {tc['max']}, walked {r['pairs']['fwd_walked']} of "
+              f"{tc['total']}; pairs {r['pairs']}; the latch leaves "
               f"{100 * r['tested_share']:.2f} % of the (pixel, instance) "
               f"pairs in range to test", flush=True)
     for name, r in results.items():
@@ -629,10 +643,9 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
                  f"{r['max_abs_err']}")
     if int(n_inst) == 0:
         fail("the eval kernel view binned no instances")
-    k4 = results["K4"]
-    return {"max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
-            "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-            "bound_by": k4["bound_by"], "library_ms": None}
+    return {name: {k: r[k] for k in ("max_abs_err", "ms", "call_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}
+            for name, r in results.items()}
 
 
 def live_and_large(anchors, decoders, mc, rc, cam, w, h):
@@ -859,6 +872,7 @@ def phase_trained() -> dict:
     those inputs (per call, averaged over the steps)."""
     import segs_slam_tpu_torch.ops.rasterizer.blend as blend
     from segs_slam_tpu_torch.apps.train_synthetic import build_trainer
+    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
 
     t, _ = build_trainer(["--iters", str(TRAIN_ITERS), "--freq-reg",
                           "--device", "cuda"])
@@ -889,8 +903,9 @@ def phase_trained() -> dict:
     worst = dict.fromkeys(("own", "seeded", "clamped"), 0.0)
     k1_err = k2_err = 0.0
     n_clamped = {"own": 0, "raised": 0}
-    sums = dict.fromkeys(("k1_ms", "k1_plain_ms", "k2_ms", "k2_plain_ms"),
-                         0.0)
+    sums = dict.fromkeys(("k1_call_ms", "k1_plain_ms", "k2_call_ms",
+                          "k2_plain_ms"), 0.0)
+    walked = {"k1": 0, "k2": 0}
     # (bytes, operations) of all the steps together: the bound of a mean
     # call is taken on these, so that it has one side
     work = {"k1": np.zeros(2), "k2": np.zeros(2)}
@@ -934,20 +949,31 @@ def phase_trained() -> dict:
             n_clamped["own"] += pairs["clamped"]
             n_clamped["raised"] += pair_counts(
                 *rargs[:3], rfwd["out"][3], tx, t.raster_config)["clamped"]
-            for k, w in zip(("k1", "k2"), blend_work(
-                    fargs[1], fargs[2], ncontrib, fargs[0].shape[1], pairs)):
+            works, walked_k2 = blend_work(
+                fargs[1], fargs[2], ncontrib, fargs[0].shape[1], pairs)
+            for k, w in zip(("k1", "k2"), works):
                 work[k] += w
-            sums["k1_ms"] += cuda_ms(lambda: blend.blend_forward_cuda(*fargs),
-                                     reps=5, warmup=1)
+            walked["k1"] += pairs["fwd_walked"]
+            walked["k2"] += walked_k2
+            sums["k1_call_ms"] += cuda_ms(
+                lambda: blend.blend_forward_cuda(*fargs), reps=5, warmup=1)
             sums["k1_plain_ms"] += cuda_ms(
                 lambda: blend.blend_forward_reference(*fargs), reps=1,
                 warmup=1)
-            sums["k2_ms"] += cuda_ms(lambda: blend.blend_backward_cuda(*args),
-                                     reps=5, warmup=1)
+            sums["k2_call_ms"] += cuda_ms(
+                lambda: blend.blend_backward_cuda(*args), reps=5, warmup=1)
             sums["k2_plain_ms"] += cuda_ms(
                 lambda: blend.blend_backward_reference(*args), reps=1,
                 warmup=1)
-    mean = {k: v / TRAINED_STEPS for k, v in sums.items()}
+        mean = {k: v / TRAINED_STEPS for k, v in sums.items()}
+        mean["k1_ms"] = kernel_ms(
+            [lambda a=a: blend.blend_forward_cuda(*a[:6]) for a in captured],
+            KERNEL_FUNCS["blend_fwd"])
+        mean["k2_ms"] = kernel_ms(
+            [lambda a=a: blend.blend_backward_cuda(*a) for a in captured],
+            KERNEL_FUNCS["blend_bwd"])
+    tiles = tile_counts(torch.cat([a[1] for a in captured]),
+                        torch.cat([a[2] for a in captured]))
     bounds = {k: bound(w, TRAINED_STEPS) for k, w in work.items()}
     for k, b in bounds.items():
         mean[f"{k}_bound_ms"] = b["bound_ms"]
@@ -961,10 +987,15 @@ def phase_trained() -> dict:
           f"above the clamp: {n_clamped['own']} as trained, "
           f"{n_clamped['raised']} raised", flush=True)
     per_call = {k: (w / TRAINED_STEPS).tolist() for k, w in work.items()}
-    print(f"[trained] per call, mean of {TRAINED_STEPS} (CUDA events): "
-          f"{json.dumps({k: round(v, 4) for k, v in mean.items()})}; bound "
-          f"by {({k: b['bound_by'] for k, b in bounds.items()})}; (bytes, "
-          f"operations) a call {per_call}", flush=True)
+    print(f"[trained] per call, mean of {TRAINED_STEPS} (k*_ms: device, "
+          f"profiler, {DEVICE_REPS}+ launches on each; k*_call_ms: CUDA "
+          f"events): {json.dumps({k: round(v, 4) for k, v in mean.items()})}"
+          f"; bound by {({k: b['bound_by'] for k, b in bounds.items()})}; "
+          f"(bytes, operations) a call {per_call}; instances a tile: mean "
+          f"{tiles['mean']:.1f}, p99 {tiles['p99']:.1f}, max {tiles['max']}; "
+          f"a step: {tiles['total'] / TRAINED_STEPS:.1f} instances, walked "
+          f"by K1 {walked['k1'] / TRAINED_STEPS:.1f}, by K2 "
+          f"{walked['k2'] / TRAINED_STEPS:.1f}", flush=True)
     if min(agree.values()) < 0.9999:
         fail(f"n_contrib equal on only {agree} of the trained steps' pixels")
     if n_clamped["raised"] == 0:
@@ -973,11 +1004,13 @@ def phase_trained() -> dict:
     return {
         "blend_eval_packed": k3,
         "blend_fwd": {"max_abs_err": k1_err, "ms": mean["k1_ms"],
+                      "call_ms": mean["k1_call_ms"],
                       "plain_ms": mean["k1_plain_ms"],
                       "bound_ms": mean["k1_bound_ms"],
                       "bound_by": bounds["k1"]["bound_by"],
                       "library_ms": None},
         "blend_bwd": {"max_abs_err": k2_err, "ms": mean["k2_ms"],
+                      "call_ms": mean["k2_call_ms"],
                       "plain_ms": mean["k2_plain_ms"],
                       "bound_ms": mean["k2_bound_ms"],
                       "bound_by": bounds["k2"]["bound_by"],
@@ -994,6 +1027,7 @@ def trained_eval(t) -> dict:
     import segs_slam_tpu_torch.ops.rasterizer.blend as blend
     from segs_slam_tpu_torch.eval import harness
     from segs_slam_tpu_torch.eval.recorder import record_all_keyframes
+    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
 
     captured = []
     packed = blend.blend_forward_eval_packed
@@ -1023,8 +1057,9 @@ def trained_eval(t) -> dict:
     if launches != want or len(captured) != n_kf:
         fail(f"evaluate launched {launches}, expected {want}")
 
-    sums = dict.fromkeys(("ms", "plain_ms"), 0.0)
+    sums = dict.fromkeys(("call_ms", "plain_ms"), 0.0)
     work = np.zeros(2)
+    walked = 0
     err = {"own": 0.0, "raised": 0.0}
     tested, clamped = [], 0
     with torch.inference_mode():
@@ -1040,20 +1075,31 @@ def trained_eval(t) -> dict:
             clamped += raised["pairs"]["clamped"]
             tested.append(own["tested_share"])
             work += own["work"]
-            sums["ms"] += cuda_ms(lambda: blend.blend_forward_eval_packed_cuda(
-                *args), reps=5, warmup=1)
+            walked += own["pairs"]["fwd_walked"]
+            sums["call_ms"] += cuda_ms(
+                lambda: blend.blend_forward_eval_packed_cuda(*args), reps=5,
+                warmup=1)
             sums["plain_ms"] += cuda_ms(
                 lambda: blend.blend_forward_eval_packed_reference(*args),
                 reps=1, warmup=1)
-    mean = {k: v / n_kf for k, v in sums.items()}
+        mean = {k: v / n_kf for k, v in sums.items()}
+        mean["ms"] = kernel_ms(
+            [lambda a=a: blend.blend_forward_eval_packed_cuda(*a)
+             for a in captured], KERNEL_FUNCS["blend_eval_packed"])
     b = bound(work, n_kf)
+    tiles = tile_counts(torch.cat([a[1] for a in captured]),
+                        torch.cat([a[2] for a in captured]))
     print(f"[trained] K3 on the {n_kf} keyframes' own inputs (256x256, NK "
           f"{captured[0][0].shape[1]}): max |err| {err['own']:.3g}, with the "
           f"opacities raised {err['raised']:.3g} ({clamped} taken pairs "
-          f"above the clamp); per call {mean['ms']:.4f} ms, plain "
-          f"{mean['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}), (bytes, operations) a call "
-          f"{(work / n_kf).tolist()}; the latch leaves "
+          f"above the clamp); per call: device {mean['ms']:.4f} ms "
+          f"(profiler, {DEVICE_REPS}+ launches on each), call "
+          f"{mean['call_ms']:.4f} ms, plain {mean['plain_ms']:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), (bytes, operations) a "
+          f"call {(work / n_kf).tolist()}; instances a tile: mean "
+          f"{tiles['mean']:.1f}, p99 {tiles['p99']:.1f}, max {tiles['max']}; "
+          f"a keyframe: {tiles['total'] / n_kf:.1f} instances, walked "
+          f"{walked / n_kf:.1f}; the latch leaves "
           f"{100 * float(np.mean(tested)):.2f} % of the pairs in range to "
           f"test", flush=True)
     if clamped == 0:
@@ -1076,6 +1122,7 @@ def trained_eval(t) -> dict:
     if len(times) != n_kf or not np.isfinite(run.get("render_fps", np.nan)):
         fail(f"the harness read no finite render_fps from {out}")
     return {"max_abs_err": err["own"], "ms": mean["ms"],
+            "call_ms": mean["call_ms"],
             "plain_ms": mean["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None}
 
@@ -1132,6 +1179,7 @@ def phase_small_input(dev):
         init_train_state,
         make_train_step,
     )
+    from segs_slam_tpu_torch.utils.synthetic import seeded_map
 
     mc = ModelConfig(capacity=256, feat_dim=8, n_offsets=4, appearance_dim=8)
     anchors_np, dec_np = seeded_map(mc, 200, SEED + 1)
@@ -1202,12 +1250,37 @@ def phase_small_input(dev):
         fail("the small-input step has no gradient")
 
 
+def print_ranking(launches, trained, at_640):
+    """The kernels ranked by the device time the main path loses in them:
+    launches in the train_synthetic run x (device ms - bound ms), on the
+    trained map's inputs (K4: the 640x480 view), and the same at 640x480
+    for the launches of a run at that size."""
+    rows = []
+    for name in KERNELS:
+        t, v = trained[name], at_640[name]
+        rows.append((launches[name] * (t["ms"] - t["bound_ms"]), name,
+                     launches[name],
+                     launches[name] * (v["ms"] - v["bound_ms"])))
+    rows.sort(reverse=True)
+    print("[rank] launches x (device ms - bound ms), train_synthetic run, "
+          "trained-map inputs (at 640x480 in brackets): "
+          + "; ".join(f"{name} {n} x -> {lost:.3f} ms ({lost640:.3f} ms)"
+                      for lost, name, n, lost640 in rows), flush=True)
+    print("[rank] device ms / call ms / bound ms: trained "
+          + json.dumps({n: [round(trained[n][k], 4) for k in (
+              "ms", "call_ms", "bound_ms")] for n in KERNELS})
+          + "; 640x480 "
+          + json.dumps({n: [round(at_640[n][k], 4) for k in (
+              "ms", "call_ms", "bound_ms")] for n in KERNELS}), flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
     from segs_slam_tpu_torch.io.convert import load_map, save_map
     from segs_slam_tpu_torch.models.config import ModelConfig
     from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
+    from segs_slam_tpu_torch.utils.synthetic import seeded_map
 
     dev = torch.device("cuda")
     phase_build()
@@ -1221,15 +1294,18 @@ def main():
     rc = RasterConfig(tile=16, compact=2**16, kmax=8, chunk=256, ksmall=4,
                       nlarge=2**13)
     anchors, decoders = load_map(map_path, dev)
-    phase_kernels(anchors, decoders, mc, rc, dev)
-    k4 = phase_eval_kernels(anchors, decoders, mc, rc, dev)
+    at_640 = phase_kernels(anchors, decoders, mc, rc, dev)
+    evals = phase_eval_kernels(anchors, decoders, mc, rc, dev)
+    at_640["blend_eval_packed"] = evals["K3 pack8"]
+    at_640["blend_eval"] = evals["K4"]
     del anchors, decoders
     phase_render_path(map_path, rc, mc)
     launches = phase_train_path()
     kernels = phase_trained()
-    kernels["blend_eval"] = k4
+    kernels["blend_eval"] = dict(evals["K4"], library_ms=None)
     phase_densify()
     phase_small_input(dev)
+    print_ranking(launches, kernels, at_640)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     # launches: the train_synthetic run (phase 5); K1, K2 and K3 numbers

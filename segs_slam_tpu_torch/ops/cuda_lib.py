@@ -38,12 +38,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library(name: str) -> Path:
-    """Compile csrc/<name>.cu (if not already built) and return the .so path.
-    The compiler's output, including ptxas register and shared-memory usage,
-    is kept beside it as <lib>.log."""
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def build_library(name: str, csrc: Path = CSRC) -> Path:
+    """Compile <csrc>/<name>.cu (if not already built) and return the .so
+    path; csrc defaults to the package's sources (another checkout's, to
+    time an earlier kernel beside this one). The compiler's output,
+    including ptxas register and shared-memory usage, is kept beside it as
+    <lib>.log."""
+    src = Path(csrc) / f"{name}.cu"
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(Path(csrc).glob("*.cuh")))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]

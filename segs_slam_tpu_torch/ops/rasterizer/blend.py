@@ -279,6 +279,34 @@ def _check_cuda_launch(feats, config: RasterConfig):
     return npix
 
 
+# K1's and K2's instances (csrc/blend_fwd.cu, csrc/blend_bwd.cu): the pixels
+# each thread owns
+KERNEL_PIXELS = (1, 2)
+# enough tiles for four blocks of 2-pixel threads on each of the H100's 132
+# SMs
+_MANY_TILES = 4 * 132
+
+
+def _pixels_per_thread(num_tiles: int) -> int:
+    """P, the pixels each thread of K1 and K2 owns: 2 on views with tiles
+    enough to keep the card busy with half as many warps a tile (640x480:
+    1,200 tiles), 1 below that, where the walks are short and latency, not
+    issue, bounds them (the trained 256x256 map: 256 tiles). Chosen from
+    chip runs of tools/blend_ab.py (PERF.md)."""
+    return 2 if num_tiles >= _MANY_TILES else 1
+
+
+def _check_blend_launch(feats, config: RasterConfig, num_tiles: int):
+    """K1's and K2's launch: (pixels a tile, pixels a thread). Their tiles
+    divide a warp's 32 lanes (8, 16 or 32 with _check_cuda_launch's rule),
+    where both values of P give whole warps."""
+    npix = _check_cuda_launch(feats, config)
+    if 32 % config.tile:
+        raise ValueError(f"tile {config.tile}: K1 and K2 take tiles that "
+                         "divide a warp's 32 lanes")
+    return npix, _pixels_per_thread(num_tiles)
+
+
 def blend_forward(feats, tile_start, tile_stop, bg, tiles_x,
                   config: RasterConfig):
     """K1 on CUDA tensors; its plain version on CPU tensors. Same arguments
@@ -340,9 +368,9 @@ def _library(name: str, argtypes: list):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                 _P, _P, _P, _P, _P]
-_BWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
+_FWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                 _F, _P, _P, _P, _P, _P]
+_BWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                  _P, _P, _P, _P, _P, _P, _P]
 _EVAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
                   _F, _P, _P]
@@ -355,13 +383,13 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     """Launch K1 (csrc/blend_fwd.cu) on the current stream. Raises on a
     non-CUDA input or a failed launch; never falls back."""
     _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
-    npix = _check_cuda_launch(feats, config)
+    nt = tile_start.shape[0]
+    npix, ppt = _check_blend_launch(feats, config, nt)
     lib, fn = _library("blend_fwd", _FWD_ARGTYPES)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
     bg = bg.reshape(3).contiguous()
-    nt = tile_start.shape[0]
     dev = feats.device
     color = torch.empty((nt, 3, npix), dtype=torch.float32, device=dev)
     final_t = torch.empty((nt, 1, npix), dtype=torch.float32, device=dev)
@@ -372,9 +400,9 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
         code = fn(
             feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
             tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            config.alpha_min, config.alpha_clamp, config.transmittance_min,
-            color.data_ptr(), final_t.data_ptr(), depth.data_ptr(),
-            ncontrib.data_ptr(), stream)
+            ppt, config.alpha_min, config.alpha_clamp,
+            config.transmittance_min, color.data_ptr(), final_t.data_ptr(),
+            depth.data_ptr(), ncontrib.data_ptr(), stream)
     check(lib, code, "blend_fwd launch")
     blend_forward_cuda.launches += 1
     return color, final_t, depth, ncontrib
@@ -386,11 +414,13 @@ blend_forward_cuda.launches = 0  # K1 launches, read by chip_smoke.py
 def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
                         config: RasterConfig, dcolor, ddepth, dfinal_t,
                         final_t, ncontrib):
-    """Launch K2 (csrc/blend_bwd.cu) on the current stream. Raises on a
-    non-CUDA input or a failed launch; never falls back."""
+    """Launch K2 (csrc/blend_bwd.cu) on the current stream; the kernel
+    writes every entry of the [10, NK] output, so it is not zero-filled
+    here. Raises on a non-CUDA input or a failed launch; never falls
+    back."""
     _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
-    npix = _check_cuda_launch(feats, config)
     nt = tile_start.shape[0]
+    npix, ppt = _check_blend_launch(feats, config, nt)
     per_pixel = (("dcolor", dcolor, 3, torch.float32),
                  ("ddepth", ddepth, 1, torch.float32),
                  ("dfinal_t", dfinal_t, 1, torch.float32),
@@ -409,13 +439,13 @@ def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
             ncontrib))
     bg = bg.reshape(3).contiguous()
     dev = feats.device
-    dfeats = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+    dfeats = torch.empty(feats.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
             feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
             tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            config.alpha_min, config.alpha_clamp, dcolor.data_ptr(),
+            ppt, config.alpha_min, config.alpha_clamp, dcolor.data_ptr(),
             ddepth.data_ptr(), dfinal_t.data_ptr(), final_t.data_ptr(),
             ncontrib.data_ptr(), dfeats.data_ptr(), stream)
     check(lib, code, "blend_bwd launch")

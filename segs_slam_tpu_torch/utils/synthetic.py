@@ -116,3 +116,42 @@ def render_gt_views(means, scales, quats, opac, colors, poses,
             images.append(kf.image)
             kfs.append(kf)
     return kfs, images
+
+
+def seeded_map(mc, n_active: int, seed: int):
+    """A random map at the widths of `mc`: anchors as bench.py places them
+    (uniform in a 8 x 6 x 11.5 m box in front of the origin, offsets
+    N(0, 0.3), features N(0, 0.1), scales 0.05) and decoders drawn from
+    U(+-1/sqrt(fan_in)), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    cap, k, f = mc.capacity, mc.n_offsets, mc.feat_dim
+    rot = np.zeros((cap, 4), np.float32)
+    rot[:, 0] = 1.0
+    active = np.zeros(cap, bool)
+    active[:n_active] = True
+    anchors = {
+        "anchor": rng.uniform([-4, -3, 0.5], [4, 3, 12], (cap, 3)),
+        "offset": rng.normal(0, 0.3, (cap, k, 3)),
+        "feat": rng.normal(0, 0.1, (cap, f)),
+        "scaling": np.full((cap, 6), np.log(0.05)),
+        "rotation": rot,
+        "opacity": np.full((cap, 1), np.log(0.1 / 0.9)),
+        "active": active,
+    }
+    anchors = {n: v if v.dtype == bool else v.astype(np.float32)
+               for n, v in anchors.items()}
+
+    def linear(d_in, d_out):
+        b = 1.0 / np.sqrt(d_in)
+        return {"w": rng.uniform(-b, b, (d_in, d_out)).astype(np.float32),
+                "b": rng.uniform(-b, b, (d_out,)).astype(np.float32)}
+
+    decoders = {
+        "opacity": {"l1": linear(mc.opacity_in, f), "l2": linear(f, k)},
+        "cov": {"l1": linear(mc.cov_in, f), "l2": linear(f, 7 * k)},
+        "color": {"l1": linear(mc.color_in, f), "l2": linear(f, 3 * k)},
+        "appearance": linear(7, mc.appearance_dim),
+        "embedding": {"table": rng.normal(
+            size=(mc.embedding_dim, mc.appearance_dim)).astype(np.float32)},
+    }
+    return anchors, decoders

@@ -52,6 +52,25 @@ def _scene(name):
                      cy=48)
         cfg = dict(compact=512, kmax=16, chunk=128, ksmall=4, nlarge=64)
         bg = np.array([0.2, 0.4, 0.6])
+    elif name == "latch_batches":
+        # tiles of 300-770 instances, more than three of K1's and K2's
+        # batches; the density falls from left to right, so pixels latch
+        # anywhere from the first batch to the third, or never
+        rng = np.random.default_rng(11)
+        n = 1200
+        z = rng.uniform(2.0, 6.0, n)
+        means = np.stack([(rng.beta(1.0, 2.2, n) - 0.5) * z,
+                          rng.uniform(-0.5, 0.5, n) * z, z], 1)
+        scales = rng.uniform(0.02, 0.06, (n, 3)) * z[:, None]
+        quats = rng.normal(size=(n, 4))
+        quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+        opac = rng.uniform(0.3, 0.95, n)
+        colors = rng.uniform(0, 1, (n, 3))
+        w = h = 32
+        cam = Camera(camera_id=0, width=w, height=h, fx=30, fy=30, cx=16,
+                     cy=16)
+        cfg = dict(compact=2048, kmax=4, chunk=128)
+        bg = np.array([0.2, 0.4, 0.6])
     else:  # tests/test_rasterizer.py:_scene, seeds 0 and 3
         rng = np.random.default_rng(0 if name == "zero_bg" else 3)
         n = 60
@@ -91,8 +110,8 @@ def _blend_inputs(means, scales, quats, opac, colors, kf, w, h, cfg):
     return feats.astype(np.float32), aux
 
 
-@pytest.mark.parametrize("name",
-                         ["zero_bg", "nonzero_bg", "deep_stack", "dual_rate"])
+@pytest.mark.parametrize("name", ["zero_bg", "nonzero_bg", "deep_stack",
+                                  "dual_rate", "latch_batches"])
 def test_binned_blend_matches_jax(name):
     means, scales, quats, opac, colors, bg, kf, w, h, cfg_kw = _scene(name)
     cfg_j = jpre.RasterConfig(tile=16, **cfg_kw)
@@ -188,6 +207,36 @@ def test_blend_dispatch_and_guards():
                                          packed_train=True), 2, 1)
 
 
+def stress_tiles(g):
+    """Binned inputs [10, NK] for the kernels' edge cases, 6 x 4 tiles of
+    16: ranges that start anywhere (the first at 3, columns past the last
+    stop), empty tiles, ranges of 1 to 1,000 instances whose last batch is
+    partial, instances crowded into the left 10 columns of their tile so
+    that pixels latch anywhere from the first batch to the eighth or never,
+    and a fifth of the opacities at 1, where alpha meets the 0.99 clamp.
+    Returns (feats, tile_start, tile_stop, tiles_x)."""
+    tx, ty = 6, 4
+    counts = torch.tensor([0, 1, 3, 127, 128, 129, 255, 257, 700, 0, 5, 1000,
+                           385, 2, 0, 640, 64, 33, 511, 513, 900, 17, 300,
+                           129], dtype=torch.int32)
+    stop = (3 + torch.cumsum(counts, 0)).to(torch.int32)
+    start = stop - counts
+    tile = torch.repeat_interleave(torch.arange(tx * ty), counts.long())
+    m = tile.numel()
+    f = torch.zeros(tblend.NFEAT, int(stop[-1]) + 7)
+    cols = slice(3, 3 + m)
+    f[0, cols] = (tile % tx * 16).float() + 11 * torch.rand(m, generator=g) - 1
+    f[1, cols] = (tile // tx * 16).float() + 18 * torch.rand(m, generator=g) \
+        - 1
+    f[2, cols], f[4, cols] = 0.1 + 0.5 * torch.rand(2, m, generator=g)
+    f[3, cols] = 0.1 * (torch.rand(m, generator=g) - 0.5)
+    op = 0.15 + 0.85 * torch.rand(m, generator=g)
+    f[5, cols] = torch.where(torch.rand(m, generator=g) < 0.2, 1.0, op)
+    f[6:9, cols] = torch.rand(3, m, generator=g)
+    f[9, cols] = 10 * torch.rand(m, generator=g)
+    return f, start, stop, tx
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -195,10 +244,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_forward_close(got, ref):
+    """n_contrib equal on >= 99.99 % of pixels; there, colour and final_T
+    within 2e-4 and depth within rtol 1e-4."""
+    nc_ok = got[3].cpu() == ref[3].cpu()
+    assert nc_ok.float().mean() >= 0.9999
+    for a, b in zip(got[:2], ref[:2]):
+        assert ((a.cpu() - b.cpu()).abs() <= 2e-4)[nc_ok.expand_as(b)].all()
+    torch.testing.assert_close(got[2].cpu()[nc_ok], ref[2].cpu()[nc_ok],
+                               rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version(cuda_device):
-    """K1 against its plain version on random deep tile stacks, and the
-    whole rasterize on the card against the CPU path."""
+def test_kernel_matches_plain_version(cuda_device, monkeypatch):
+    """K1 against its plain version on random deep tile stacks and on the
+    edge cases of `stress_tiles` (there on the card, where the plain
+    version's torch.exp is the kernel's expf), at each pixels-a-thread
+    instance, and the whole rasterize on the card against the CPU path."""
     g = torch.Generator().manual_seed(0)
     tx, ty = 6, 4
     counts = torch.randint(0, 3000, (tx * ty,), generator=g, dtype=torch.int32)
@@ -215,15 +277,23 @@ def test_kernel_matches_plain_version(cuda_device):
     bg = torch.tensor([0.1, 0.2, 0.3])
     cfg = RasterConfig(tile=16, compact=64, kmax=4)
     ref = tblend.blend_forward_reference(f, start, stop, bg, tx, cfg)
-    got = tblend.blend_forward_cuda(
-        *(x.to(cuda_device) for x in (f, start, stop, bg)), tx, cfg)
-    torch.cuda.synchronize()
-    nc_ok = got[3].cpu() == ref[3]
-    assert nc_ok.float().mean() >= 0.9999
-    for a, b in zip(got[:2], ref[:2]):
-        assert ((a.cpu() - b).abs() <= 2e-4)[nc_ok.expand_as(b)].all()
-    torch.testing.assert_close(got[2].cpu()[nc_ok], ref[2][nc_ok], rtol=1e-4,
-                               atol=1e-5)
+    for p in tblend.KERNEL_PIXELS:  # each instance of the kernel
+        monkeypatch.setattr(tblend, "_pixels_per_thread", lambda *_: p)
+        got = tblend.blend_forward_cuda(
+            *(x.to(cuda_device) for x in (f, start, stop, bg)), tx, cfg)
+        torch.cuda.synchronize()
+        _assert_forward_close(got, ref)
+
+    *stress, tx = stress_tiles(torch.Generator().manual_seed(1))
+    f, start, stop = (x.to(cuda_device) for x in stress)
+    bg = bg.to(cuda_device)
+    ref = tblend.blend_forward_reference(f, start, stop, bg, tx, cfg)
+    assert int(ref[3].max()) > 512 and (ref[1] < 1e-3).any()  # deep latches
+    for p in tblend.KERNEL_PIXELS:  # each instance of the kernel
+        monkeypatch.setattr(tblend, "_pixels_per_thread", lambda *_: p)
+        got = tblend.blend_forward_cuda(f, start, stop, bg, tx, cfg)
+        torch.cuda.synchronize()
+        _assert_forward_close(got, ref)
 
     means, scales, quats, opac, colors, bg, kf, w, h, cfg_kw = _scene(
         "dual_rate")

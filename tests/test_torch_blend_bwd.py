@@ -26,6 +26,7 @@ from segs_slam_tpu.ops.rasterizer.blend import binned_blend as j_binned_blend
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig, rasterize
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
 from segs_slam_tpu_torch.ops.rasterizer.dense import rasterize_dense
+from test_torch_blend import stress_tiles
 
 
 def _scene(name):
@@ -61,6 +62,25 @@ def _scene(name):
         cam = Camera(camera_id=0, width=w, height=h, fx=60, fy=60, cx=32,
                      cy=32)
         cfg = dict(compact=512, kmax=16, chunk=128, ksmall=4, nlarge=64)
+        bg = np.array([0.2, 0.4, 0.6])
+    elif name == "latch_batches":
+        # tiles of 300-770 instances, more than three of K1's and K2's
+        # batches; the density falls from left to right, so pixels latch
+        # anywhere from the first batch to the third, or never
+        rng = np.random.default_rng(11)
+        n = 1200
+        z = rng.uniform(2.0, 6.0, n)
+        means = np.stack([(rng.beta(1.0, 2.2, n) - 0.5) * z,
+                          rng.uniform(-0.5, 0.5, n) * z, z], 1)
+        scales = rng.uniform(0.02, 0.06, (n, 3)) * z[:, None]
+        quats = rng.normal(size=(n, 4))
+        quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+        opac = rng.uniform(0.3, 0.95, n)
+        colors = rng.uniform(0, 1, (n, 3))
+        w = h = 32
+        cam = Camera(camera_id=0, width=w, height=h, fx=30, fy=30, cx=16,
+                     cy=16)
+        cfg = dict(compact=2048, kmax=4, chunk=128)
         bg = np.array([0.2, 0.4, 0.6])
     else:  # tests/test_rasterizer.py:_scene
         rng = np.random.default_rng(0 if name == "zero_bg" else 3)
@@ -109,8 +129,8 @@ def _assert_scaled_close(ours, ref, name, tol=2e-4):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("name",
-                         ["zero_bg", "nonzero_bg", "deep_stack", "dual_rate"])
+@pytest.mark.parametrize("name", ["zero_bg", "nonzero_bg", "deep_stack",
+                                  "dual_rate", "latch_batches"])
 def test_blend_backward_matches_jax_vjp(name):
     """All three cotangents (colour, final_T, expected depth) at once."""
     means, scales, quats, opac, colors, bg, kf, w, h, cfg_kw = _scene(name)
@@ -259,10 +279,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_rows_close(got, ref):
+    """Every gradient row within 1e-4 of its largest magnitude."""
+    scale = ref.abs().amax(dim=1, keepdim=True) + 1e-12
+    assert ((got.cpu() - ref.cpu()).abs() <= 1e-4 * scale.cpu()).all()
+
+
 @pytest.mark.cuda
-def test_backward_kernel_matches_plain_version(cuda_device):
-    """K2 against its plain version on random deep tile stacks (every
-    gradient row within 1e-4 of its largest magnitude), and rasterize
+def test_backward_kernel_matches_plain_version(cuda_device, monkeypatch):
+    """K2 against its plain version on random deep tile stacks and on the
+    edge cases of test_torch_blend.stress_tiles (there on the card, with
+    the forward's own final_T and n_contrib), at each pixels-a-thread
+    instance: every gradient row within 1e-4 of its largest magnitude, and
+    the columns outside every tile range or past a tile's largest
+    n_contrib zero though the output is not zero-filled. Then rasterize
     gradients on the card against the CPU path."""
     g = torch.Generator().manual_seed(0)
     tx, ty = 6, 4
@@ -286,11 +316,34 @@ def test_backward_kernel_matches_plain_version(cuda_device):
            torch.randn(tx * ty, 1, 256, generator=g))
     args = (f, start, stop, bg, tx, cfg, *cot, fwd[1], fwd[3])
     ref = tblend.blend_backward_reference(*args)
-    got = tblend.blend_backward_cuda(
-        *(a.to(cuda_device) if torch.is_tensor(a) else a for a in args))
-    torch.cuda.synchronize()
-    scale = ref.abs().amax(dim=1, keepdim=True) + 1e-12
-    assert ((got.cpu() - ref).abs() <= 1e-4 * scale).all()
+    for p in tblend.KERNEL_PIXELS:  # each instance of the kernel
+        monkeypatch.setattr(tblend, "_pixels_per_thread", lambda *_: p)
+        got = tblend.blend_backward_cuda(
+            *(a.to(cuda_device) if torch.is_tensor(a) else a for a in args))
+        torch.cuda.synchronize()
+        _assert_rows_close(got, ref)
+
+    *stress, tx = stress_tiles(torch.Generator().manual_seed(1))
+    f, start, stop = (x.to(cuda_device) for x in stress)
+    bg = bg.to(cuda_device)
+    nt = start.shape[0]
+    fwd = tblend.blend_forward_reference(f, start, stop, bg, tx, cfg)
+    cot = tuple(torch.randn(nt, c, 256, generator=g).to(cuda_device)
+                for c in (3, 1, 1))
+    args = (f, start, stop, bg, tx, cfg, *cot, fwd[1], fwd[3])
+    ref = tblend.blend_backward_reference(*args)
+    assert (ref[:, :3] == 0).all() and (ref[:, int(stop[-1]):] == 0).all()
+    walked = torch.minimum(fwd[3].reshape(nt, -1).amax(1), stop - start)
+    assert int((stop - start - walked).sum()) > 0  # columns past n_contrib
+    for p in tblend.KERNEL_PIXELS:
+        monkeypatch.setattr(tblend, "_pixels_per_thread", lambda *_: p)
+        # garbage in the allocator's next block: the kernel must write zeros
+        torch.full((tblend.NFEAT, f.shape[1]), float("nan"),
+                   device=cuda_device)
+        got = tblend.blend_backward_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        _assert_rows_close(got, ref)
 
     means, scales, quats, opac, colors, bg, kf, w, h, cfg_kw = _scene(
         "dual_rate")
