@@ -57,8 +57,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      within 2e-4 of the leaf's largest, loss within rtol 1e-5.
 Then ranks the kernels by the device time the main path loses in them
 (launches x (device ms - bound ms)) and prints a JSON line with each
-kernel's numbers ("ms" is its device time, "call_ms" its call time), then,
-as the last line, {"ok": true, "device": {...}}. Imports nothing of JAX.
+kernel's numbers ("ms" is its device time, "call_ms" its call time,
+"pixels_per_thread" the pixels a thread of the instance its wrapper
+launched on those inputs), then, as the last line, {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -270,6 +272,16 @@ def check_eval(kind, args) -> dict:
             "work": eval_work(start, stop, npix, nbytes, pairs),
             "tested_share": pairs["fwd_tested"] / max(in_range, 1),
             "ok": err <= 2e-4 and bool(torch.isfinite(got).all())}
+
+
+def pixels_per_thread(tile_start, eval_kernel: bool = False) -> int:
+    """The pixels a thread that a kernel's wrapper launches with on a
+    binned view of tile_start.shape[0] tiles (K3 and K4: eval_kernel)."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+
+    return blend._pixels_per_thread(
+        tile_start.shape[0],
+        blend._MANY_EVAL_TILES if eval_kernel else blend._MANY_TILES)
 
 
 def raise_opacity(x, rc):
@@ -513,10 +525,13 @@ def phase_kernels(anchors, decoders, mc, rc, dev):
           f"({k2_bound['bound_by']}); instances walked: K1 "
           f"{pairs['fwd_walked']}, K2 {k2_walked} of {n_inst}; (pixel, "
           f"instance) pairs {pairs}", flush=True)
+    ppt = pixels_per_thread(b.tile_start)
     return {"blend_fwd": {"ms": k1_ms, "call_ms": k1_call_ms,
-                          "plain_ms": k1_plain_ms, **k1_bound},
+                          "plain_ms": k1_plain_ms, **k1_bound,
+                          "pixels_per_thread": ppt},
             "blend_bwd": {"ms": k2_ms, "call_ms": k2_call_ms,
-                          "plain_ms": k2_plain_ms, **k2_bound}}
+                          "plain_ms": k2_plain_ms, **k2_bound,
+                          "pixels_per_thread": ppt}}
 
 
 def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
@@ -616,6 +631,7 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
                                   KERNEL_FUNCS[kind])
             res["plain_ms"] = cuda_ms(lambda: plain(*args), reps=5)
             res["tiles"] = tile_counts(args[1], args[2])
+            res["pixels_per_thread"] = pixels_per_thread(args[1], True)
             res.update(bound(res["work"]))
             results[name] = res
         layer_ms["K3"] = results["K3 pack8"]["call_ms"]
@@ -628,8 +644,9 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
           flush=True)
     for name, r in results.items():
         tc = r["tiles"]
-        print(f"[eval] {name}: device {r['ms']:.4f} ms (profiler, mean of "
-              f"{DEVICE_REPS}+), call {r['call_ms']:.4f} ms, plain "
+        print(f"[eval] {name}: P {r['pixels_per_thread']}, device "
+              f"{r['ms']:.4f} ms (profiler, mean of {DEVICE_REPS}+), call "
+              f"{r['call_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); max |err| {r['max_abs_err']:.3g}; "
               f"instances a tile: mean {tc['mean']:.1f}, p99 {tc['p99']:.1f},"
@@ -644,7 +661,8 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
     if int(n_inst) == 0:
         fail("the eval kernel view binned no instances")
     return {name: {k: r[k] for k in ("max_abs_err", "ms", "call_ms",
-                                      "plain_ms", "bound_ms", "bound_by")}
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "pixels_per_thread")}
             for name, r in results.items()}
 
 
@@ -1001,6 +1019,7 @@ def phase_trained() -> dict:
     if n_clamped["raised"] == 0:
         fail("raising the opacities put no pair above the alpha clamp")
     k3 = trained_eval(t)
+    ppt = pixels_per_thread(captured[0][1])
     return {
         "blend_eval_packed": k3,
         "blend_fwd": {"max_abs_err": k1_err, "ms": mean["k1_ms"],
@@ -1008,13 +1027,13 @@ def phase_trained() -> dict:
                       "plain_ms": mean["k1_plain_ms"],
                       "bound_ms": mean["k1_bound_ms"],
                       "bound_by": bounds["k1"]["bound_by"],
-                      "library_ms": None},
+                      "library_ms": None, "pixels_per_thread": ppt},
         "blend_bwd": {"max_abs_err": k2_err, "ms": mean["k2_ms"],
                       "call_ms": mean["k2_call_ms"],
                       "plain_ms": mean["k2_plain_ms"],
                       "bound_ms": mean["k2_bound_ms"],
                       "bound_by": bounds["k2"]["bound_by"],
-                      "library_ms": None},
+                      "library_ms": None, "pixels_per_thread": ppt},
     }
 
 
@@ -1124,7 +1143,8 @@ def trained_eval(t) -> dict:
     return {"max_abs_err": err["own"], "ms": mean["ms"],
             "call_ms": mean["call_ms"],
             "plain_ms": mean["plain_ms"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": None}
+            "bound_by": b["bound_by"], "library_ms": None,
+            "pixels_per_thread": pixels_per_thread(captured[0][1], True)}
 
 
 def phase_densify():
@@ -1266,12 +1286,13 @@ def print_ranking(launches, trained, at_640):
           "trained-map inputs (at 640x480 in brackets): "
           + "; ".join(f"{name} {n} x -> {lost:.3f} ms ({lost640:.3f} ms)"
                       for lost, name, n, lost640 in rows), flush=True)
-    print("[rank] device ms / call ms / bound ms: trained "
-          + json.dumps({n: [round(trained[n][k], 4) for k in (
-              "ms", "call_ms", "bound_ms")] for n in KERNELS})
+    keys = ("ms", "call_ms", "bound_ms", "pixels_per_thread")
+    print("[rank] device ms / call ms / bound ms / pixels a thread: trained "
+          + json.dumps({n: [round(trained[n][k], 4) for k in keys]
+                        for n in KERNELS})
           + "; 640x480 "
-          + json.dumps({n: [round(at_640[n][k], 4) for k in (
-              "ms", "call_ms", "bound_ms")] for n in KERNELS}), flush=True)
+          + json.dumps({n: [round(at_640[n][k], 4) for k in keys]
+                        for n in KERNELS}), flush=True)
 
 
 def main():

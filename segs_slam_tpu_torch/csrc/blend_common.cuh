@@ -13,10 +13,11 @@
 // threshold could be taken by one and skipped by the other, which moves a
 // pixel's colour by about alpha * T * |c|, some 2e-3.
 //
-// K1 and K2 also share their staging: the asynchronous copy of a batch of
-// instances into shared memory (stage_async), the staged layout, the pixel
-// layout (own_pixel) and the per-instance skip threshold that lets a warp
-// skip the expf where none of its lanes can pass (skip_threshold).
+// The kernels also share their staging: the asynchronous copy of a batch of
+// instances into shared memory (cp_async4, stage_async), the staged record
+// layout, the pixel layout (own_pixel) and the per-instance skip threshold
+// that lets a warp skip the expf where none of its lanes can pass
+// (skip_threshold).
 
 #pragma once
 
@@ -50,7 +51,7 @@ __device__ __forceinline__ float opacity_gaussian(float op, float power) {
 }
 
 // A pair whose exponent lies below skip_threshold(op) fails alpha >= alpha_min
-// for certain, so K1 and K2 skip it without the expf: below
+// for certain, so the kernels skip it without the expf: below
 // ln(alpha_min / op) - kSkipMargin, op * expf(power) is at least a factor
 // e^-0.001 under alpha_min, far more than the few ulp by which logf, expf and
 // the roundings can err. A pair at or above the threshold takes the exact
@@ -73,7 +74,7 @@ __host__ __device__ constexpr int stage_slot(int row) {
   return row == kOp ? 6 : row == kD ? 7 : row >= kR ? row + 2 : row;
 }
 
-// Pixels of K1's and K2's threads when each owns P of a tile x tile tile
+// Pixels of the kernels' threads when each owns P of a tile x tile tile
 // (32 % tile == 0): a warp takes a band of S * P rows (S = 32 / tile), and
 // a thread's k-th pixel lies in the band's rows [k S, (k + 1) S), in the
 // lane's column. So the 32 lanes' k-th pixels form one compact S x tile
@@ -87,7 +88,7 @@ __device__ __forceinline__ int own_pixel(int tid, int k, int tile, int p) {
          lane % tile;
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
@@ -105,16 +106,18 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts the copy of instances [lo, lo + n) of feats ([kCols, nk] f32) into
-// stage[0, n) and commits it as one group. Thread tid copies the instances
-// j = tid (mod nthr), every row of each, in 4-byte copies: global reads
-// coalesce across the threads, and no alignment of lo or nk is needed.
+// stage[0, n) and commits it as one group: rows [0, Rows) of each (K4 leaves
+// the depth row out). Thread tid copies the instances j = tid (mod nthr),
+// every row of each, in 4-byte copies: global reads coalesce across the
+// threads, and no alignment of lo or nk is needed.
+template <int Rows = kCols>
 __device__ __forceinline__ void stage_async(float4* stage,
                                             const float* __restrict__ feats,
                                             long long nk, int lo, int n,
                                             int tid, int nthr) {
   float* s = reinterpret_cast<float*>(stage);
 #pragma unroll
-  for (int row = 0; row < kCols; ++row) {
+  for (int row = 0; row < Rows; ++row) {
     const float* src = feats + static_cast<long long>(row) * nk + lo;
     for (int j = tid; j < n; j += nthr) {
       cp_async4(s + j * kStageFloats + stage_slot(row), src + j);

@@ -279,32 +279,40 @@ def _check_cuda_launch(feats, config: RasterConfig):
     return npix
 
 
-# K1's and K2's instances (csrc/blend_fwd.cu, csrc/blend_bwd.cu): the pixels
-# each thread owns
+# The kernels' instances (csrc/blend_fwd.cu, blend_bwd.cu, blend_eval.cu):
+# the pixels each thread owns
 KERNEL_PIXELS = (1, 2)
-# enough tiles for four blocks of 2-pixel threads on each of the H100's 132
-# SMs
+# The tile counts from which the kernels take P = 2: for K1 and K2, four
+# blocks of 2-pixel threads on each of the H100's 132 SMs; for K3 and K4
+# eight, between render_views' 900 tiles and 640x480's 1,200 (see
+# _pixels_per_thread).
 _MANY_TILES = 4 * 132
+_MANY_EVAL_TILES = 8 * 132
 
 
-def _pixels_per_thread(num_tiles: int) -> int:
-    """P, the pixels each thread of K1 and K2 owns: 2 on views with tiles
-    enough to keep the card busy with half as many warps a tile (640x480:
-    1,200 tiles), 1 below that, where the walks are short and latency, not
-    issue, bounds them (the trained 256x256 map: 256 tiles). Chosen from
-    chip runs of tools/blend_ab.py (PERF.md)."""
-    return 2 if num_tiles >= _MANY_TILES else 1
+def _pixels_per_thread(num_tiles: int, many_tiles: int = _MANY_TILES) -> int:
+    """P, the pixels each thread of a blend kernel owns: 2 on views with
+    tiles enough to keep the card busy with half as many warps a tile
+    (640x480: 1,200 tiles), 1 below that, where the walks are short and
+    latency, not issue, bounds them (the trained 256x256 map: 256 tiles).
+    Chosen from chip runs of tools/blend_ab.py (PERF.md): K1 and K2 switch
+    at _MANY_TILES; the eval kernels K3 and K4 at _MANY_EVAL_TILES, since
+    on render_views' 480x480 views (900 tiles, 134 instances a tile) K3
+    took 0.0477 ms at P = 1 and 0.0507 ms at P = 2, and on the 640x480
+    view (1,200 tiles, 219) 0.0834 and 0.0813 ms."""
+    return 2 if num_tiles >= many_tiles else 1
 
 
-def _check_blend_launch(feats, config: RasterConfig, num_tiles: int):
-    """K1's and K2's launch: (pixels a tile, pixels a thread). Their tiles
+def _check_blend_launch(feats, config: RasterConfig, num_tiles: int,
+                        many_tiles: int = _MANY_TILES):
+    """A kernel's launch: (pixels a tile, pixels a thread). The tiles
     divide a warp's 32 lanes (8, 16 or 32 with _check_cuda_launch's rule),
     where both values of P give whole warps."""
     npix = _check_cuda_launch(feats, config)
     if 32 % config.tile:
-        raise ValueError(f"tile {config.tile}: K1 and K2 take tiles that "
-                         "divide a warp's 32 lanes")
-    return npix, _pixels_per_thread(num_tiles)
+        raise ValueError(f"tile {config.tile}: the blend kernels take tiles "
+                         "that divide a warp's 32 lanes")
+    return npix, _pixels_per_thread(num_tiles, many_tiles)
 
 
 def blend_forward(feats, tile_start, tile_stop, bg, tiles_x,
@@ -372,8 +380,8 @@ _FWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                  _F, _P, _P, _P, _P, _P]
 _BWD_ARGTYPES = [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                  _P, _P, _P, _P, _P, _P, _P]
-_EVAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _F, _F,
-                  _F, _P, _P]
+_EVAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _F,
+                  _F, _F, _P, _P]
 # csrc/blend_eval.cu's input layouts
 _EVAL_F32, _EVAL_F16, _EVAL_PACK8 = 0, 1, 2
 
@@ -460,13 +468,13 @@ def _launch_eval(feats, layout, tile_start, tile_stop, bg, tiles_x,
                  config: RasterConfig):
     """One launch of csrc/blend_eval.cu (K3 or K4, by layout) on the
     current stream; returns color [nt, 3, P]."""
-    npix = _check_cuda_launch(feats, config)
+    nt = tile_start.shape[0]
+    npix, ppt = _check_blend_launch(feats, config, nt, _MANY_EVAL_TILES)
     lib, fn = _library("blend_eval", _EVAL_ARGTYPES)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
     bg = bg.reshape(3).contiguous()
-    nt = tile_start.shape[0]
     color = torch.empty((nt, 3, npix), dtype=torch.float32,
                         device=feats.device)
     with torch.cuda.device(feats.device):
@@ -474,8 +482,8 @@ def _launch_eval(feats, layout, tile_start, tile_stop, bg, tiles_x,
         code = fn(
             feats.data_ptr(), layout, feats.shape[1], tile_start.data_ptr(),
             tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            config.alpha_min, config.alpha_clamp, config.transmittance_min,
-            color.data_ptr(), stream)
+            ppt, config.alpha_min, config.alpha_clamp,
+            config.transmittance_min, color.data_ptr(), stream)
     check(lib, code, "blend_eval launch")
     return color
 

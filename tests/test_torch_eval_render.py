@@ -1,5 +1,6 @@
 """The port's eval path against the JAX package on the CPU: the eval blend
-(K3's plain version, both layouts; K4's plain version), EvalRenderer,
+(K3's plain version, both layouts, also on tiles deeper than two of the
+kernel's batches; K4's plain version), EvalRenderer,
 calibrate_eval_config, render_batch, Trainer.evaluate, and the recorder and
 harness with the reference's files. Images within atol 2e-4 (as
 tests/test_rasterizer.py), integer counts and configs equal. The kernels
@@ -51,6 +52,8 @@ from segs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
 from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.trainer import Trainer
+from test_torch_blend import _blend_inputs, stress_tiles
+from test_torch_blend import _scene as blend_scene
 
 W, H = 48, 32
 
@@ -99,6 +102,18 @@ def _projected(seed=7, appearance_dim=0):
             {k: np.asarray(v) for k, v in aux.items()})
 
 
+def _latch_projected():
+    """test_torch_blend's latch_batches scene through the JAX preprocess:
+    (feats, aux, W, H), four tiles of 255-769 instances, deeper than two of
+    the eval kernel's 128-instance batches, whose pixels latch anywhere from
+    the first batch to the sixth, or never."""
+    means, scales, quats, opac, colors, _, kf, w, h, cfg = blend_scene(
+        "latch_batches")
+    feats, aux = _blend_inputs(means, scales, quats, opac, colors, kf, w, h,
+                               JRasterConfig(tile=16, **cfg))
+    return feats, aux, w, h
+
+
 BG = np.array([0.2, 0.4, 0.6], np.float32)
 
 BLEND_CASES = [
@@ -113,6 +128,10 @@ BLEND_CASES = [
     ("pack8_appearance", dict(compact=256, kmax=8, ksmall=2, kmid=4,
                               nmid=128, nlarge=64, sel_direct=True,
                               pack8=True)),
+    ("f16_latch", dict(compact=2048, kmax=4, ksmall=2, nlarge=1024)),
+    # compact = N: JAX's bin_eval_direct cannot pad
+    ("pack8_latch", dict(compact=1200, kmax=4, ksmall=2, nlarge=512,
+                         sel_direct=True, pack8=True)),
 ]
 
 
@@ -121,9 +140,14 @@ def test_eval_blend_matches_jax(case, kw):
     """K3's plain version (through binned_blend_eval) against JAX's
     binned_blend_eval, whose K3 runs in interpret mode, on the same blend
     inputs: identical packed columns reach both kernels."""
-    feats, aux = _projected(appearance_dim=8 if "appearance" in case else 0)
+    if "latch" in case:
+        feats, aux, w, h = _latch_projected()
+    else:
+        feats, aux = _projected(appearance_dim=8 if "appearance" in case
+                                else 0)
+        w, h = W, H
     cj, ct = _configs(**kw)
-    tx, ty = ct.grid(W, H)
+    tx, ty = ct.grid(w, h)
     ref = jblend.binned_blend_eval(
         tuple(jnp.asarray(f) for f in feats),
         {k: jnp.asarray(v) for k, v in aux.items()}, jnp.asarray(BG),
@@ -139,6 +163,8 @@ def test_eval_blend_matches_jax(case, kw):
     assert (ours[0] - torch.tensor(BG)[None, :, None]).abs().max() > 0.1
     if case == "f16_overflow":
         assert int(ours[5]) > kw["compact"]
+    if "latch" in case:  # more than two batches a tile on average
+        assert int(ours[4]) > 2 * 128 * tx * ty
 
 
 def test_k4_plain_version_matches_jax_kernel():
@@ -458,11 +484,64 @@ def _random_stacks(g, tx, ty, max_count=3000):
     return stop - counts, stop, int(stop[-1]) + 5
 
 
+CFG = RasterConfig(tile=16, compact=64, kmax=8)
+CFG8 = RasterConfig(tile=16, compact=64, kmax=8, ksmall=2, nlarge=8,
+                    sel_direct=True, pack8=True)
+
+
+def _eval_layouts(local, absolute, zero_op=None):
+    """(kernel, plain version, input, config) for K3's f16 and pack8 columns
+    of the rows `local` (mean2d tile-local; quantised to pack8's bytes and
+    11-bit opacity, which is 0 where zero_op is set) and K4's f32 rows
+    `absolute`."""
+    def q(v, levels):
+        return torch.round(v.clamp(0, 1) * levels).to(torch.int64)
+
+    pack = tbin._pack2f16
+    f16_cols = torch.stack([
+        pack(local[0], local[1]), pack(local[2], local[3]),
+        pack(local[4], local[5]), pack(local[6], local[7]),
+        tbin._f16_bits(local[8])])
+    op8 = q(local[5], 2047)
+    if zero_op is not None:
+        op8 = torch.where(zero_op, 0, op8)
+    pack8_cols = torch.stack([
+        f16_cols[0], f16_cols[1], tbin._f16_bits(local[4]) | (op8 << 16),
+        q(local[6], 255) | (q(local[7], 255) << 8) | (q(local[8], 255) << 16)])
+    packed = (tblend.blend_forward_eval_packed_cuda,
+              tblend.blend_forward_eval_packed_reference)
+    return [(*packed, tbin.as_u32_bits(f16_cols), CFG),
+            (*packed, tbin.as_u32_bits(pack8_cols), CFG8),
+            (tblend.blend_forward_eval_cuda,
+             tblend.blend_forward_eval_reference, absolute, CFG)]
+
+
+def _assert_eval_kernels_match(layouts, start, stop, bg, tx, dev,
+                               monkeypatch):
+    """Each layout's kernel at every pixels-a-thread instance against its
+    plain version on the card (whose torch.exp is the kernel's expf):
+    colour within 2e-4 on every pixel."""
+    start, stop, bg = (x.to(dev) for x in (start, stop, bg))
+    for kernel, plain, x, c in layouts:
+        x = x.to(dev)
+        ref = plain(x, start, stop, bg, tx, c)
+        assert float((ref - bg[None, :, None]).abs().max()) > 0.1
+        for p in tblend.KERNEL_PIXELS:  # each instance of the kernel
+            monkeypatch.setattr(tblend, "_pixels_per_thread", lambda *_: p)
+            got = kernel(x, start, stop, bg, tx, c)
+            torch.cuda.synchronize()
+            assert float((got - ref).abs().max()) <= 2e-4, (c.pack8, p)
+
+
 @pytest.mark.cuda
-def test_eval_kernels_match_plain_versions(cuda_device):
-    """K3 (both layouts) and K4 against their plain versions on random deep
-    tile stacks (colour within 2e-4), and the whole EvalRenderer on the
-    card against the CPU path."""
+def test_eval_kernels_match_plain_versions(cuda_device, monkeypatch):
+    """K3 (both layouts) and K4 against their plain versions at every
+    pixels-a-thread instance, on random deep tile stacks and on a
+    tile-local packing of test_torch_blend.stress_tiles (odd starts, empty
+    tiles, 1-1,000-instance ranges, latches in batch 1 to 8 or never,
+    opacities at the clamp; here also needle-shaped conics, and under pack8
+    some opacities 0); and the whole
+    EvalRenderer on the card against the CPU path."""
     g = torch.Generator().manual_seed(0)
     tx, ty = 6, 4
     start, stop, nk = _random_stacks(g, tx, ty)
@@ -471,44 +550,32 @@ def test_eval_kernels_match_plain_versions(cuda_device):
         + torch.tensor([0.01, -0.005, 0.01])[:, None]
     f[5] *= 0.6
     bg = torch.tensor([0.1, 0.2, 0.3])
-    cfg = RasterConfig(tile=16, compact=64, kmax=8)
-    cfg8 = RasterConfig(tile=16, compact=64, kmax=8, ksmall=2, nlarge=8,
-                        sel_direct=True, pack8=True)
-
-    def q(v, levels):
-        return torch.round(v.clamp(0, 1) * levels).to(torch.int64)
-
     local = f.clone()
     local[0:2] = local[0:2] * 24 - 4  # tile-local, a little outside
-    pack = tbin._pack2f16
-    f16_cols = torch.stack([
-        pack(local[0], local[1]), pack(local[2], local[3]),
-        pack(local[4], local[5]), pack(local[6], local[7]),
-        tbin._f16_bits(local[8])])
-    pack8_cols = torch.stack([
-        f16_cols[0], f16_cols[1],
-        tbin._f16_bits(local[4]) | (q(local[5], 2047) << 16),
-        q(local[6], 255) | (q(local[7], 255) << 8) | (q(local[8], 255) << 16)])
     absolute = f.clone()
     absolute[0] *= tx * 16
     absolute[1] *= ty * 16
-    cases = [
-        (tblend.blend_forward_eval_packed_cuda,
-         tblend.blend_forward_eval_packed_reference,
-         tbin.as_u32_bits(f16_cols), cfg),
-        (tblend.blend_forward_eval_packed_cuda,
-         tblend.blend_forward_eval_packed_reference,
-         tbin.as_u32_bits(pack8_cols), cfg8),
-        (tblend.blend_forward_eval_cuda, tblend.blend_forward_eval_reference,
-         absolute, cfg),
-    ]
-    for kernel, plain, x, c in cases:
-        ref = plain(x, start, stop, bg, tx, c)
-        got = kernel(*(t.to(cuda_device) for t in (x, start, stop, bg)), tx,
-                     c)
-        torch.cuda.synchronize()
-        assert float((got.cpu() - ref).abs().max()) <= 2e-4
-        assert float((ref - bg[None, :, None]).abs().max()) > 0.1
+    _assert_eval_kernels_match(_eval_layouts(local, absolute), start, stop,
+                               bg, tx, cuda_device, monkeypatch)
+
+    f, start, stop, tx = stress_tiles(torch.Generator().manual_seed(1))
+    # every eleventh instance a needle (a c / det = 500, or more once its
+    # conic is rounded to f16), where the kernels' band test is tightest
+    needle = torch.arange(f.shape[1]) % 11 == 5
+    f[3] = torch.where(needle, 0.999 * (f[2] * f[4]).sqrt() * torch.where(
+        f[0] > f[1], 1.0, -1.0), f[3])
+    counts = (stop - start).long()
+    tile = torch.repeat_interleave(torch.arange(counts.numel()), counts)
+    cols = slice(int(start[0]), int(stop[-1]))  # the ranges are contiguous
+    local = f.clone()
+    local[0, cols] -= (tile % tx * 16).float()
+    local[1, cols] -= (tile // tx * 16).float()
+    zero_op = torch.arange(f.shape[1]) % 37 == 0
+    ref = tblend.blend_forward_reference(
+        *(x.to(cuda_device) for x in (f, start, stop, bg)), tx, CFG)
+    assert int(ref[3].max()) > 512 and (ref[1] < 1e-3).any()  # deep latches
+    _assert_eval_kernels_match(_eval_layouts(local, f, zero_op), start,
+                               stop, bg, tx, cuda_device, monkeypatch)
 
     _, _, _, _, mc, anchors, dec, cam = _scene(seed=11, appearance_dim=8)
     ct = RasterConfig(tile=16, compact=256, kmax=8, chunk=64, ksmall=2,
