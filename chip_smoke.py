@@ -55,6 +55,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      small map on the card against the CPU path (the plain versions the CPU
      tests hold to the JAX package): images atol 2e-4, per-leaf gradients
      within 2e-4 of the leaf's largest, loss within rtol 1e-5.
+  9. SLAM: the online RGB-D mapping path, slam_rgbd with the pose oracle,
+     on a 160-frame 640x480 sequence that the port's make_rgbd_dataset
+     writes (16 keyframes). Run A at the app's defaults (full width,
+     capacity 2^16, packed_train auto) for 1,700 iterations: mapping
+     ms/iter and iters/s (host clock around Mapper.run to a synchronised
+     device), device time and busy share over a profiler window of 20
+     mapper iterations, K1/K2/K3 launches, the training binning (must be
+     the packed one), active anchors, densification adjusts (must be 2),
+     record_all_keyframes' PSNR, SSIM, L1 and render FPS read back by the
+     harness, ATE against groundtruth.txt (at most 1e-3 m). K1 and K2
+     against their plain versions, at phase 6's gates, on 8 of run A's
+     steps; the packed against the f32 training binning; pose refinement
+     of a perturbed keyframe on the card (the error must fall). Run B with
+     pose rows, refinement on arrival, every 25 iterations and at shutdown,
+     and two pyramid sub-levels from a YAML, for 550 iterations: the image
+     sizes trained (three levels), pose rows folded, refinement gains (none
+     negative), finite losses.
 Then ranks the kernels by the device time the main path loses in them
 (launches x (device ms - bound ms)) and prints a JSON line with each
 kernel's numbers ("ms" is its device time, "call_ms" its call time,
@@ -104,6 +121,17 @@ DEVICE_REPS = 20  # recorded launches an input for a kernel's device ms
 
 TRAINED_STEPS = 24
 LAYERS = ("forward", "loss", "backward", "adam")
+
+# The SLAM phase: slam_rgbd with the pose oracle on the port's
+# make_rgbd_dataset sequence, frames cut from 200 to 160 (16 keyframes)
+SLAM_FRAMES = 160
+SLAM_ITERS = 1700  # from 30,000: densification adjusts at 1,600 and 1,700
+# run B: --pose-refine-every fires from its warm-up (iteration 500) on
+SLAM_B_ITERS = 550
+SLAM_WINDOW = (1001, 20)  # profiler window: first iteration, iterations
+SLAM_CHECKED = (1651, 8)  # K1/K2 against plain: first iteration, steps
+PYRAMID_YAML = ("%YAML:1.0\nGausPyramid.do: 1\n"
+                "GausPyramid.num_sub_levels: 2\n")
 
 # For the bounds: H100 SXM HBM3 rate and FP32 peak outside the tensor cores
 # (NVIDIA's data sheet, 700 W), and the FP32 operations per (pixel,
@@ -890,7 +918,6 @@ def phase_trained() -> dict:
     those inputs (per call, averaged over the steps)."""
     import segs_slam_tpu_torch.ops.rasterizer.blend as blend
     from segs_slam_tpu_torch.apps.train_synthetic import build_trainer
-    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
 
     t, _ = build_trainer(["--iters", str(TRAIN_ITERS), "--freq-reg",
                           "--device", "cuda"])
@@ -915,6 +942,22 @@ def phase_trained() -> dict:
     if len(captured) != TRAINED_STEPS:
         fail(f"{len(captured)} blend backwards in {TRAINED_STEPS} steps")
 
+    kernels = hold_training_kernels(
+        captured, t.raster_config, "the trained 256x256 map", "trained")
+    kernels["blend_eval_packed"] = trained_eval(t)
+    return kernels
+
+
+def hold_training_kernels(captured, rc, where: str, tag: str) -> dict:
+    """K1 and K2 against their plain versions on the training steps whose
+    blend_backward arguments are `captured` (at the gates of phase 3): with
+    the loss's own cotangents, with seeded ones, and with the opacities
+    above 0.5 raised to 1 so that alpha meets the 0.99 clamp. Returns their
+    numbers for the kernels line (per call, averaged over the steps)."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    from segs_slam_tpu_torch.utils.kernel_timing import tile_counts
+
+    n_steps = len(captured)
     g = torch.Generator().manual_seed(SEED + 4)
     equal = dict.fromkeys(("own", "raised"), 0)
     pixels = 0
@@ -933,8 +976,8 @@ def phase_trained() -> dict:
                 args[:6], args[6:])
             fwd = check_forward(fargs)
             if not fwd["ok"]:
-                fail(f"K1 disagrees with its plain version on a trained "
-                     f"step: {fwd['err']}")
+                fail(f"K1 disagrees with its plain version on a step of "
+                     f"{where}: {fwd['err']}")
             equal["own"] += fwd["equal"]
             pixels += fwd["pixels"]
             k1_err = max(k1_err, fwd["err"]["color"], fwd["err"]["final_T"])
@@ -955,18 +998,18 @@ def phase_trained() -> dict:
             for name, res in (("own", own), ("seeded", seed_b),
                               ("clamped", clamp_b)):
                 if not res["ok"]:
-                    fail(f"K2 disagrees with its plain version on a trained "
-                         f"step ({name} cotangents): {res['row_err']}")
+                    fail(f"K2 disagrees with its plain version on a step of "
+                         f"{where} ({name} cotangents): {res['row_err']}")
                 worst[name] = max(worst[name], max(res["row_err"]))
             if not rfwd["ok"]:
                 fail(f"K1 disagrees with its plain version with raised "
                      f"opacities: {rfwd['err']}")
             k2_err = max(k2_err, own["max_abs_err"])
             tx = fargs[4]
-            pairs = pair_counts(*fargs[:3], ncontrib, tx, t.raster_config)
+            pairs = pair_counts(*fargs[:3], ncontrib, tx, rc)
             n_clamped["own"] += pairs["clamped"]
             n_clamped["raised"] += pair_counts(
-                *rargs[:3], rfwd["out"][3], tx, t.raster_config)["clamped"]
+                *rargs[:3], rfwd["out"][3], tx, rc)["clamped"]
             works, walked_k2 = blend_work(
                 fargs[1], fargs[2], ncontrib, fargs[0].shape[1], pairs)
             for k, w in zip(("k1", "k2"), works):
@@ -983,7 +1026,7 @@ def phase_trained() -> dict:
             sums["k2_plain_ms"] += cuda_ms(
                 lambda: blend.blend_backward_reference(*args), reps=1,
                 warmup=1)
-        mean = {k: v / TRAINED_STEPS for k, v in sums.items()}
+        mean = {k: v / n_steps for k, v in sums.items()}
         mean["k1_ms"] = kernel_ms(
             [lambda a=a: blend.blend_forward_cuda(*a[:6]) for a in captured],
             KERNEL_FUNCS["blend_fwd"])
@@ -992,36 +1035,35 @@ def phase_trained() -> dict:
             KERNEL_FUNCS["blend_bwd"])
     tiles = tile_counts(torch.cat([a[1] for a in captured]),
                         torch.cat([a[2] for a in captured]))
-    bounds = {k: bound(w, TRAINED_STEPS) for k, w in work.items()}
+    bounds = {k: bound(w, n_steps) for k, w in work.items()}
     for k, b in bounds.items():
         mean[f"{k}_bound_ms"] = b["bound_ms"]
     agree = {k: v / pixels for k, v in equal.items()}
-    print(f"[trained] K1 and K2 on {TRAINED_STEPS} steps of the trained map "
-          f"(256x256, NK {captured[0][0].shape[1]}): n_contrib equal on "
+    print(f"[{tag}] K1 and K2 on {n_steps} steps of {where} "
+          f"(NK {captured[0][0].shape[1]}): n_contrib equal on "
           f"{agree['own'] * 100:.4f} % of pixels ({agree['raised'] * 100:.4f}"
           f" % with the opacities raised); worst K2 row error / row max: own "
           f"cotangents {worst['own']:.2e}, seeded {worst['seeded']:.2e}, "
           f"opacities raised {worst['clamped']:.2e}; taken pairs with op G "
           f"above the clamp: {n_clamped['own']} as trained, "
           f"{n_clamped['raised']} raised", flush=True)
-    per_call = {k: (w / TRAINED_STEPS).tolist() for k, w in work.items()}
-    print(f"[trained] per call, mean of {TRAINED_STEPS} (k*_ms: device, "
+    per_call = {k: (w / n_steps).tolist() for k, w in work.items()}
+    print(f"[{tag}] per call, mean of {n_steps} (k*_ms: device, "
           f"profiler, {DEVICE_REPS}+ launches on each; k*_call_ms: CUDA "
           f"events): {json.dumps({k: round(v, 4) for k, v in mean.items()})}"
           f"; bound by {({k: b['bound_by'] for k, b in bounds.items()})}; "
           f"(bytes, operations) a call {per_call}; instances a tile: mean "
           f"{tiles['mean']:.1f}, p99 {tiles['p99']:.1f}, max {tiles['max']}; "
-          f"a step: {tiles['total'] / TRAINED_STEPS:.1f} instances, walked "
-          f"by K1 {walked['k1'] / TRAINED_STEPS:.1f}, by K2 "
-          f"{walked['k2'] / TRAINED_STEPS:.1f}", flush=True)
+          f"a step: {tiles['total'] / n_steps:.1f} instances, walked "
+          f"by K1 {walked['k1'] / n_steps:.1f}, by K2 "
+          f"{walked['k2'] / n_steps:.1f}", flush=True)
     if min(agree.values()) < 0.9999:
-        fail(f"n_contrib equal on only {agree} of the trained steps' pixels")
+        fail(f"n_contrib equal on only {agree} of the pixels of {where}")
     if n_clamped["raised"] == 0:
-        fail("raising the opacities put no pair above the alpha clamp")
-    k3 = trained_eval(t)
+        fail(f"raising the opacities put no pair above the alpha clamp on "
+             f"{where}")
     ppt = pixels_per_thread(captured[0][1])
     return {
-        "blend_eval_packed": k3,
         "blend_fwd": {"max_abs_err": k1_err, "ms": mean["k1_ms"],
                       "call_ms": mean["k1_call_ms"],
                       "plain_ms": mean["k1_plain_ms"],
@@ -1232,8 +1274,9 @@ def phase_small_input(dev):
         ts, m = make_train_step(mc, oc, rc, w, h)(
             ts, cam_d, torch.as_tensor(gt, device=d), bg)
         # the first step's moments are (1 - b1) g: the step's gradients
+        # (the state has no pose rows: their leaf is empty)
         steps.append((float(m["loss"]), {
-            p: (x / 0.1).cpu() for p, x in leaves(ts.adam.mu)}))
+            p: (x / 0.1).cpu() for p, x in leaves(ts.adam.mu) if x.numel()}))
     cpu, gpu = images
     err = float((gpu.image.cpu() - cpu.image).abs().max())
     print(f"[small] 96x64 render, card vs CPU path: max |image err| {err:.3g}"
@@ -1270,6 +1313,372 @@ def phase_small_input(dev):
         fail("the small-input step has no gradient")
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class SlamProbe:
+    """What one slam_rgbd run does, seen by wrapping the Trainer's methods
+    and the blend's backward dispatcher for the run's duration (the wrappers
+    count and keep references; they add no device work): the iterations'
+    losses (device tensors, read after the run), the image size each
+    iteration trained at (its pyramid level), densification adjusts, pose
+    refinement gains, a torch.profiler window of window[1] iterations from
+    iteration window[0] (device time against the window's host clock), and
+    K2's arguments on capture[1] steps from iteration capture[0]."""
+
+    def __init__(self, dev, window=None, capture=None):
+        self.dev, self.window, self.capture = dev, window, capture
+        self.losses, self.gains, self.captured = [], [], []
+        self.sizes: dict = {}
+        self.adjusts = 0
+        self.window_stats = None
+        self._profile = None
+        self._capturing = False
+
+    def __enter__(self):
+        import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+        import segs_slam_tpu_torch.train.trainer as tr
+
+        probe, cls = self, tr.Trainer
+        self._saved = (cls.train_iteration, cls._step_for,
+                       cls.refine_keyframe_pose, tr.make_adjust_anchor,
+                       blend.blend_backward)
+        iterate, step_for, refine, make_adjust, backward = self._saved
+
+        def train_iteration(trainer):
+            it = trainer.iteration + 1
+            if probe.window and it == probe.window[0]:
+                probe._start_window()
+            probe._capturing = bool(probe.capture) and (
+                probe.capture[0] <= it < sum(probe.capture))
+            m = iterate(trainer)
+            probe._capturing = False
+            if m is not None:
+                probe.losses.append(m["loss"])
+            if probe.window and it == sum(probe.window) - 1:
+                probe._stop_window()
+            return m
+
+        def step_for_size(trainer, w, h):
+            probe.sizes[(w, h)] = probe.sizes.get((w, h), 0) + 1
+            return step_for(trainer, w, h)
+
+        def refine_keyframe_pose(trainer, kf, *args, **kw):
+            gain = refine(trainer, kf, *args, **kw)
+            probe.gains.append(gain)
+            return gain
+
+        def make_adjust_anchor(*args):
+            adjust = make_adjust(*args)
+
+            def counted(*a):
+                probe.adjusts += 1
+                return adjust(*a)
+            return counted
+
+        def blend_backward(*args):
+            if probe._capturing:
+                probe.captured.append(args)
+            return backward(*args)
+
+        cls.train_iteration, cls._step_for = train_iteration, step_for_size
+        cls.refine_keyframe_pose = refine_keyframe_pose
+        tr.make_adjust_anchor = make_adjust_anchor
+        blend.blend_backward = blend_backward
+        return self
+
+    def __exit__(self, *exc):
+        import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+        import segs_slam_tpu_torch.train.trainer as tr
+
+        cls = tr.Trainer
+        (cls.train_iteration, cls._step_for, cls.refine_keyframe_pose,
+         tr.make_adjust_anchor, blend.blend_backward) = self._saved
+        if self._profile is not None:
+            self._profile.__exit__(None, None, None)
+            self._profile = None
+
+    def _start_window(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        _sync(self.dev)
+        self._profile = profile(activities=acts)
+        self._profile.__enter__()
+        self._t0 = time.perf_counter()
+
+    def _stop_window(self):
+        from torch.autograd import DeviceType
+
+        _sync(self.dev)
+        wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._profile.__exit__(None, None, None)
+        events = [e for e in self._profile.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("train_step.")
+                  and not getattr(e, "is_user_annotation", False)]
+        self._profile = None
+        n = self.window[1]
+        device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        self.window_stats = {"host_ms": wall_ms / n,
+                             "device_ms": device_ms / n,
+                             "device_events": len(events) / n,
+                             "busy": device_ms / wall_ms}
+
+
+def make_slam_sequence(dev) -> Path:
+    """The port's make_rgbd_dataset at its defaults (640x480, fx = fy =
+    576, 8,000 gaussians, seed 0), frames cut from 200 to SLAM_FRAMES."""
+    from segs_slam_tpu_torch.utils import make_rgbd_dataset
+
+    seq = WORK / "slam_seq"
+    t0 = time.perf_counter()
+    make_rgbd_dataset.main(["--out", str(seq), "--frames", str(SLAM_FRAMES),
+                            "--device", dev.type])
+    print(f"[slam] sequence: {SLAM_FRAMES} frames at 640x480 by "
+          f"make_rgbd_dataset in {time.perf_counter() - t0:.1f} s (set-up, "
+          f"outside every number below)", flush=True)
+    return seq
+
+
+def slam_argv(seq: Path, out: Path, budget: int, dev) -> list:
+    return ["--dataset", "replica", "--path", str(seq), "--out", str(out),
+            "--tracker", "oracle", "--width", "640", "--height", "480",
+            "--fx", "576", "--fy", "576", "--cx", "320", "--cy", "240",
+            "--iters-budget", str(budget), "--device", dev.type]
+
+
+def png_l1(out: Path) -> float:
+    """Mean |rendered - ground truth| over record_all_keyframes' PNGs."""
+    from PIL import Image
+
+    errs = []
+    for r in sorted((out / "rendered").glob("*.png")):
+        a = np.asarray(Image.open(r), np.float32) / 255.0
+        b = np.asarray(Image.open(out / "ground_truth" / r.name),
+                       np.float32) / 255.0
+        errs.append(float(np.abs(a - b).mean()))
+    return float(np.mean(errs)) if errs else float("nan")
+
+
+def finite_losses(probe, label: str) -> np.ndarray:
+    losses = torch.stack(probe.losses).cpu().numpy() if probe.losses \
+        else np.zeros(0)
+    if not len(losses) or not np.isfinite(losses).all():
+        fail(f"{label}: {len(losses)} losses, finite: "
+             f"{bool(np.isfinite(losses).all())}")
+    return losses
+
+
+def slam_run_a(seq: Path, dev) -> dict:
+    """Run A, the measured path: slam_rgbd at the app's defaults with the
+    pose oracle and SLAM_ITERS iterations."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    from segs_slam_tpu_torch.apps import slam_rgbd
+    from segs_slam_tpu_torch.eval import harness
+
+    out = WORK / "slam_a"
+    for k in blend.train_binnings:
+        blend.train_binnings[k] = 0
+    reset_launches()
+    with SlamProbe(dev, window=SLAM_WINDOW, capture=SLAM_CHECKED) as probe:
+        res = slam_rgbd.main(slam_argv(seq, out, SLAM_ITERS, dev))
+    launches = read_launches()
+    binnings = dict(blend.train_binnings)
+    t = res["trainer"]
+    losses = finite_losses(probe, "run A")
+    run = harness.evaluate_run(out)
+    l1 = png_l1(out)
+    n_kf = len(t.scene.keyframes)
+    w = probe.window_stats or {}
+    ms = res["ms_per_iter"]
+    binning = ("packed" if binnings["packed"] and not binnings["f32"]
+               else "f32" if not binnings["packed"] else "mixed")
+    print(f"[slam] run A: slam_rgbd --tracker oracle, {SLAM_FRAMES} frames "
+          f"at 640x480, {n_kf} keyframes, {res['iterations']} iterations: "
+          f"mapping {ms:.3f} ms/iter, {1000.0 / ms:.2f} iters/s (host clock "
+          f"around Mapper.run to a synchronised device, "
+          f"{res['mapping_s']:.1f} s); profiler window of {SLAM_WINDOW[1]} "
+          f"mapper iterations from {SLAM_WINDOW[0]}: host "
+          f"{w.get('host_ms', float('nan')):.3f} ms/iter, device "
+          f"{w.get('device_ms', float('nan')):.4f} ms/iter, "
+          f"{w.get('device_events', float('nan')):.0f} device events an "
+          f"iteration, device busy {100 * w.get('busy', float('nan')):.1f} "
+          f"% of the window ({100 * w.get('device_ms', float('nan')) / ms:.1f}"
+          f" % of an unprofiled iteration); launches {launches}; training "
+          f"binning {binning} ({binnings}); active anchors "
+          f"{int(t.state.anchors.num_active())}; densify adjusts "
+          f"{probe.adjusts}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"record_all_keyframes read back by the harness: PSNR "
+          f"{run.get('psnr', float('nan')):.3f} dB, SSIM "
+          f"{1.0 - run.get('dssim', float('nan')):.4f}, L1 {l1:.5f}, render "
+          f"{run.get('render_fps', float('nan')):.1f} FPS; ATE RMSE "
+          f"{run.get('ate_rmse', float('nan')):.3e} m", flush=True)
+    if res["iterations"] != SLAM_ITERS:
+        fail(f"run A trained {res['iterations']} iterations, not "
+             f"{SLAM_ITERS}")
+    if binning != "packed":
+        fail(f"run A's steps did not all take the packed training binning: "
+             f"{binnings}")
+    if probe.adjusts != 2:
+        fail(f"run A densified {probe.adjusts} times, expected 2")
+    if not (launches["blend_fwd"] >= SLAM_ITERS
+            and launches["blend_bwd"] == SLAM_ITERS
+            and launches["blend_eval_packed"] >= n_kf):
+        fail(f"run A launched {launches}")
+    if not run.get("ate_rmse", np.inf) <= 1e-3:
+        fail(f"run A's ATE {run.get('ate_rmse')} m is above 1e-3 m")
+    if not all(np.isfinite(run.get(k, np.nan))
+               for k in ("psnr", "dssim", "render_fps")) \
+            or not np.isfinite(l1):
+        fail(f"run A's recorded metrics are not finite: {run}, L1 {l1}")
+    if len(probe.captured) != SLAM_CHECKED[1]:
+        fail(f"{len(probe.captured)} blend backwards captured, expected "
+             f"{SLAM_CHECKED[1]}")
+    if w.get("device_ms", 0.0) <= 0.0:
+        fail("the profiler window saw no device time in run A")
+    return {"trainer": t, "launches": launches, "probe": probe,
+            "ms_per_iter": ms}
+
+
+def slam_binning_cost(t, n: int = 10) -> None:
+    """The packed training binning against the f32 one on the card: the
+    binning alone on one keyframe's view of run A's map (CUDA events,
+    median of n), and n train iterations with each (the step rebuilt)."""
+    from segs_slam_tpu_torch.models.renderer import project_view
+    from segs_slam_tpu_torch.ops.rasterizer import binning
+
+    rc = t.raster_config
+    kf = sorted(t.scene.keyframes.items())[len(t.scene.keyframes) // 2][1]
+    cam = t._kf_inputs(kf)[0]
+    with torch.no_grad():
+        *_, feats, aux = project_view(t.state.anchors, t.state.decoders,
+                                      cam, t.width, t.height, t.model_config,
+                                      rc)
+        tx, ty = rc.grid(t.width, t.height)
+        packed = cuda_ms(lambda: binning.expand_and_sort_packed_train(
+            binning.compact_gaussians_packed(feats, aux, rc, with_orig=True),
+            tx, ty, rc), reps=n)
+        f32 = cuda_ms(lambda: binning.expand_and_sort(
+            binning.compact_gaussians(feats, aux, rc), tx, ty, rc), reps=n)
+    steps = {}
+    for name, cfg in (("packed", rc),
+                      ("f32", dataclasses.replace(rc, packed_train=False)),
+                      ("packed again", rc)):
+        t.raster_config = cfg
+        t._build_step()
+        steps[name] = float(np.median([
+            cuda_ms(t.train_iteration, reps=1, warmup=0) for _ in range(n)]))
+    print(f"[slam] training binning on run A's map at 640x480 (CUDA events,"
+          f" median of {n}): packed {packed:.3f} ms, f32 {f32:.3f} ms; a "
+          f"train iteration with each: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in steps.items()), flush=True)
+
+
+def _perturbed(kf, ang_deg=1.0, dt=(0.02, -0.015, 0.01)):
+    """kf's pose rotated by ang_deg about the view axis and shifted by dt
+    (tests/test_pose_refine.py's perturbation)."""
+    from segs_slam_tpu_torch.core import se3
+
+    ang = np.deg2rad(ang_deg)
+    dR = np.array([[np.cos(ang), -np.sin(ang), 0],
+                   [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+    Rn = dR @ kf.rotation_matrix()
+    qn = se3.rotmat_to_quat(torch.as_tensor(Rn, dtype=torch.float32))
+    return qn.numpy(), dR @ kf.trans + np.asarray(dt)
+
+
+def _pose_error(kf, R0, t0):
+    """(rotation error in degrees, camera-centre error in m) against the
+    true world-to-camera (R0, t0)."""
+    R = kf.rotation_matrix()
+    cos = np.clip((np.trace(R @ R0.T) - 1.0) / 2.0, -1.0, 1.0)
+    return (float(np.degrees(np.arccos(cos))),
+            float(np.linalg.norm(-R.T @ kf.trans + R0.T @ t0)))
+
+
+def slam_pose_refine(t) -> None:
+    """refine_keyframe_pose on the card: one of run A's keyframes perturbed
+    by 1 degree and about 2 cm, then 8 full-resolution steps (pool 1)."""
+    kf = sorted(t.scene.keyframes.items())[len(t.scene.keyframes) // 2][1]
+    R0, t0 = kf.rotation_matrix(), np.asarray(kf.trans).copy()
+    t.set_keyframe_pose(kf, *_perturbed(kf))
+    before = _pose_error(kf, R0, t0)
+    t_ms = time.perf_counter()
+    gain = t.refine_keyframe_pose(kf, steps=8, pool=1)
+    t_ms = (time.perf_counter() - t_ms) * 1e3
+    after = _pose_error(kf, R0, t0)
+    print(f"[slam] pose refinement on the card, keyframe {kf.kf_id} of run "
+          f"A perturbed by 1 deg and 2.7 cm: error {before[0]:.4f} deg / "
+          f"{before[1] * 100:.3f} cm -> {after[0]:.4f} deg / "
+          f"{after[1] * 100:.3f} cm in 8 steps at pool 1 ({t_ms:.1f} ms, "
+          f"loss gain {gain:.6f})", flush=True)
+    if not (after[1] < before[1] and after[0] <= before[0]):
+        fail(f"pose refinement did not reduce the pose error: {before} -> "
+             f"{after}")
+
+
+def slam_run_b(seq: Path, dev) -> dict:
+    """Run B, the pose and pyramid paths: pose rows, refinement on arrival,
+    every 25 iterations and at shutdown, and two pyramid sub-levels from a
+    reference-style YAML, at SLAM_B_ITERS iterations."""
+    from segs_slam_tpu_torch.apps import slam_rgbd
+    from segs_slam_tpu_torch.eval import harness
+
+    yaml = WORK / "pyramid.yaml"
+    yaml.write_text(PYRAMID_YAML)
+    out = WORK / "slam_b"
+    argv = slam_argv(seq, out, SLAM_B_ITERS, dev) + [
+        "--optimize-poses", "on", "--pose-refine-on-arrival", "2",
+        "--pose-refine-every", "25", "--shutdown-pose-refine", "1",
+        "--shutdown-pose-refine-iters", "20", "--mapper-yaml", str(yaml)]
+    reset_launches()
+    with SlamProbe(dev) as probe:
+        res = slam_rgbd.main(argv)
+    launches = read_launches()
+    losses = finite_losses(probe, "run B")
+    run = harness.evaluate_run(out)
+    sizes = sorted(probe.sizes.items())
+    gains = np.asarray(probe.gains)
+    print(f"[slam] run B: --optimize-poses on, refinement on arrival (2 "
+          f"steps), every 25 and at shutdown (1 round, 20 re-fit "
+          f"iterations), GausPyramid 2 sub-levels: {res['iterations']} "
+          f"iterations, {res['ms_per_iter']:.3f} ms/iter; iterations by "
+          f"image size {sizes}; pose rows folded at shutdown "
+          f"{res['folded']}; {len(gains)} refinements, loss gains min "
+          f"{gains.min() if len(gains) else float('nan'):.6f} mean "
+          f"{gains.mean() if len(gains) else float('nan'):.6f}; loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {launches}; PSNR "
+          f"{run.get('psnr', float('nan')):.3f} dB, ATE RMSE "
+          f"{run.get('ate_rmse', float('nan')):.3e} m", flush=True)
+    if len(sizes) != 3:
+        fail(f"run B trained at image sizes {sizes}, not three levels")
+    if not len(gains) or not (np.isfinite(gains).all()
+                              and (gains >= 0.0).all()):
+        fail(f"run B's pose refinement gains: {gains}")
+    if res["folded"] <= 0:
+        fail("run B folded no pose rows at shutdown")
+    return {"launches": launches}
+
+
+def phase_slam(dev) -> dict:
+    """Phase 9: the online RGB-D mapping path (see the module docstring)."""
+    seq = make_slam_sequence(dev)
+    a = slam_run_a(seq, dev)
+    kernels = hold_training_kernels(
+        a["probe"].captured, a["trainer"].raster_config,
+        "run A's packed-binning steps at 640x480", "slam")
+    slam_binning_cost(a["trainer"])
+    slam_pose_refine(a["trainer"])
+    b = slam_run_b(seq, dev)
+    return {"kernels": kernels, "launches": a["launches"],
+            "launches_b": b["launches"]}
+
+
 def print_ranking(launches, trained, at_640):
     """The kernels ranked by the device time the main path loses in them:
     launches in the train_synthetic run x (device ms - bound ms), on the
@@ -1293,6 +1702,20 @@ def print_ranking(launches, trained, at_640):
           + "; 640x480 "
           + json.dumps({n: [round(at_640[n][k], 4) for k in keys]
                         for n in KERNELS}), flush=True)
+
+
+def print_slam_ranking(launches, slam, trained):
+    """launches in slam_rgbd's run A x (device ms - bound ms): K1 and K2 on
+    run A's own packed-binning steps, K3 on the trained map's keyframes."""
+    rows = sorted(
+        ((launches[n] * (v["ms"] - v["bound_ms"]), n, launches[n])
+         for n, v in (("blend_fwd", slam["blend_fwd"]),
+                      ("blend_bwd", slam["blend_bwd"]),
+                      ("blend_eval_packed", trained["blend_eval_packed"]))),
+        reverse=True)
+    print("[rank] slam_rgbd run A: launches x (device ms - bound ms): "
+          + "; ".join(f"{n} {k} x -> {lost:.3f} ms" for lost, n, k in rows),
+          flush=True)
 
 
 def main():
@@ -1327,13 +1750,21 @@ def main():
     phase_densify()
     phase_small_input(dev)
     print_ranking(launches, kernels, at_640)
+    slam = phase_slam(dev)
+    print_slam_ranking(slam["launches"], slam["kernels"], kernels)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    # launches: the train_synthetic run (phase 5); K1, K2 and K3 numbers
-    # from the trained map (phase 6), K4's from the 640x480 view (phase 3)
+    # launches: this slice's main path, run A of slam_rgbd (phase 9), with
+    # each path's counts beside them; K1 and K2 numbers from run A's
+    # packed-binning steps (phase 9), K3's from the trained map (phase 6),
+    # K4's from the 640x480 view (phase 3)
+    kernels.update(slam["kernels"])
+    by_path = {"slam_rgbd": slam["launches"], "slam_rgbd_b":
+               slam["launches_b"], "train_synthetic": launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **kernels[name]}
+         "launches": slam["launches"][name], **kernels[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items()}}
         for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,10 @@ and `decoders.<path>` for the decoder parameter tree, e.g.
 `decoders.opacity.l1.w`. JAX stores a Linear's `w` as (fan_in, fan_out);
 nn.Linear stores (out, in), so `w` is transposed on the way in.
 
-A whole train state (map, decoders, Adam moments, densify statistics, step)
-converts both ways with train_state_from_jax / train_state_to_numpy, so
-that the JAX package and the port can start from one state and be compared
-leaf by leaf.
+A whole train state (map, decoders, pose rows, Adam moments, densify
+statistics, step) converts both ways with train_state_from_jax /
+train_state_to_numpy, so that the JAX package and the port can start from
+one state and be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -148,14 +148,14 @@ def _fields(x) -> dict:
 def train_state_from_jax(tree, device=None) -> TrainState:
     """The port's TrainState from the JAX package's TrainState with numpy
     leaves (`jax.tree.map(np.asarray, ts)`) or the same layout as nested
-    dicts (what train_state_to_numpy returns): anchors, decoders, the Adam
-    step and moments (transposed like the weights), DensifyStats and the
-    step. A state with pose rows raises: pose optimisation is not ported."""
+    dicts (what train_state_to_numpy returns): anchors, decoders, the pose
+    rows and their EMA, the Adam step and moments (transposed like the
+    weights), DensifyStats and the step."""
     t = _fields(tree)
-    if np.asarray(t["pose"]).shape[0]:
-        raise ValueError("the state has pose rows; in-step pose "
-                         "optimisation is not ported")
     adam = _fields(t["adam"])
+
+    def tensor(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
 
     def group(tree_):
         g = _fields(tree_)
@@ -166,6 +166,7 @@ def train_state_from_jax(tree, device=None) -> TrainState:
             "decoders": {n: x.to(device) for n, x in (
                 _torch_leaf(name, a)
                 for name, a in flatten_params(g["decoders"]).items())},
+            "pose": tensor(g["pose"]),
         }
 
     stats = _fields(t["stats"])
@@ -178,22 +179,22 @@ def train_state_from_jax(tree, device=None) -> TrainState:
             k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in stats.items()}),
         step=int(t["step"]),
+        pose=tensor(t["pose"]),
+        pose_ema=tensor(t["pose_ema"]),
     )
 
 
 def train_state_to_numpy(ts: TrainState) -> dict:
     """The inverse of train_state_from_jax: nested dicts of numpy arrays in
-    the JAX TrainState's layout and names (decoder weights (in, out)), with
-    empty pose rows."""
+    the JAX TrainState's layout and names (decoder weights (in, out))."""
     np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
-    no_pose = np.zeros((0, 6), np.float32)
 
     def group(g):
         return {
             "anchors": {k: np_(v) for k, v in g["anchors"].items()},
             "decoders": _unflatten(dict(
                 _jax_leaf(n, x) for n, x in g["decoders"].items())),
-            "pose": no_pose,
+            "pose": np_(g["pose"]),
         }
 
     return {
@@ -205,6 +206,6 @@ def train_state_to_numpy(ts: TrainState) -> dict:
         "stats": {f.name: np_(getattr(ts.stats, f.name))
                   for f in dataclasses.fields(ts.stats)},
         "step": np.int32(ts.step),
-        "pose": no_pose,
-        "pose_ema": no_pose,
+        "pose": np_(ts.pose),
+        "pose_ema": np_(ts.pose_ema),
     }

@@ -2,9 +2,8 @@
 stable (tile, depth) sort; and the packed eval binning.
 
 Port of segs_slam_tpu/ops/rasterizer/binning.py (reference:
-cuda_rasterizer/rasterizer_impl.cu:70-138, 276-308), without the training
-path's packed sorts (`expand_and_sort_packed_train`) and the kanchor
-pre-compaction. The JAX version carries every feature through its sorts as
+cuda_rasterizer/rasterizer_impl.cu:70-138, 276-308), without the kanchor
+pre-compaction of the eval path. The JAX version carries every feature through its sorts as
 payload because gathers are slow on the TPU; here the sorts carry only
 indices and the features are gathered afterwards, which gives the same
 arrays. The f32 (training) binning:
@@ -18,7 +17,8 @@ arrays. The f32 (training) binning:
      bits), i.e. lax.sort's (tile, depth) order with ties in expansion order;
   4. tile ranges by searchsorted.
 
-The packed eval binning (below `DEPTH_KEY_BITS`) is described there.
+The packed binnings (below `DEPTH_KEY_BITS`), the eval one and the
+training one (`expand_and_sort_packed_train`), are described there.
 """
 
 from __future__ import annotations
@@ -242,6 +242,8 @@ class PackedCompact(NamedTuple):
     dmeta: torch.Tensor  # (compact,) int64; touched 0 for dead slots
     valid: torch.Tensor  # (compact,) bool
     num_valid: torch.Tensor  # () int32
+    # (compact,) int32 index into the (padded) [N] rows: training only
+    orig_id: torch.Tensor | None = None
 
 
 def _pack_eval_cols(feats: torch.Tensor, aux: dict, config: RasterConfig):
@@ -299,10 +301,14 @@ def _pad_rows(feats, aux, nc):
 
 
 def compact_gaussians_packed(feats: torch.Tensor, aux: dict,
-                             config: RasterConfig) -> PackedCompact:
+                             config: RasterConfig,
+                             with_orig: bool = False) -> PackedCompact:
     """Opacity-priority compaction of the packed columns (the key of
-    `compact_gaussians`): the leading `compact` rows of one stable sort."""
-    if config.kanchor:
+    `compact_gaussians`): the leading `compact` rows of one stable sort.
+    with_orig adds the rows' original indices, which the training backward
+    scatters through; the JAX version skips its kanchor pre-compaction
+    then, so kanchor is not refused here."""
+    if config.kanchor and not with_orig:
         raise ValueError("the kanchor pre-compaction is not ported")
     nc = config.compact
     feats, aux = _pad_rows(feats, aux, nc)
@@ -314,7 +320,8 @@ def compact_gaussians_packed(feats: torch.Tensor, aux: dict,
     valid = key_s[:nc] < DEAD_KEY
     return PackedCompact(cols=pays[:, order],
                          dmeta=torch.where(valid, dmeta[order], 0),
-                         valid=valid, num_valid=num_valid)
+                         valid=valid, num_valid=num_valid,
+                         orig_id=order.to(torch.int32) if with_orig else None)
 
 
 def _touched(dmeta):
@@ -409,11 +416,10 @@ def expand_and_sort_packed(pc: PackedCompact, num_tiles_x: int,
                                     num_instances, num_large, return_packed)
 
 
-def _finalize_eval_instances(cols, inst, num_tiles, tx, num_instances,
-                             extra, return_packed):
-    """The instance sort, the gather of the sorted columns with p_xy
-    re-based to each instance's tile, and the tile ranges; optionally the
-    unpack to f32 feature rows."""
+def _sort_instances(cols, inst, num_tiles):
+    """The (tile, depth) instance sort shared by the packed binnings:
+    (sorted ukeys, the sorted instances' columns with p_xy re-based to each
+    instance's tile, tile_start, tile_stop)."""
     ukey, rows, dx, dy = inst
     ukey_sorted, order = torch.sort(ukey, stable=True)
     rows, dx, dy = rows[order], dx[order], dy[order]
@@ -428,6 +434,17 @@ def _finalize_eval_instances(cols, inst, num_tiles, tx, num_instances,
         torch.int32)
     tile_stop = torch.searchsorted(tile_sorted, tiles, side="right").to(
         torch.int32)
+    return ukey_sorted, cols_s, tile_start, tile_stop
+
+
+def _finalize_eval_instances(cols, inst, num_tiles, tx, num_instances,
+                             extra, return_packed):
+    """The instance sort, the gather of the sorted columns with p_xy
+    re-based to each instance's tile, and the tile ranges; optionally the
+    unpack to f32 feature rows."""
+    ukey_sorted, cols_s, tile_start, tile_stop = _sort_instances(
+        cols, inst, num_tiles)
+    tile_sorted = ukey_sorted >> DEPTH_KEY_BITS
     if return_packed:
         return cols_s, tile_start, tile_stop, num_instances, extra
 
@@ -485,3 +502,68 @@ def bin_eval_direct(feats: torch.Tensor, aux: dict, num_tiles_x: int,
     return _finalize_eval_instances(pays, inst, num_tiles_x * num_tiles_y,
                                     num_tiles_x, num_instances, num_valid,
                                     return_packed)
+
+
+def expand_and_sort_packed_train(pc: PackedCompact, num_tiles_x: int,
+                                 num_tiles_y: int,
+                                 config: RasterConfig) -> BinnedInstances:
+    """The packed instance sort of the training path
+    (RasterConfig.packed_train): the eval packing plus the routing the
+    backward needs. The compact id rides in the top 16 bits of the b
+    column (so compact <= 2^16), and each instance's depth is the f32
+    rebuilt from its 21-bit depth key (the top 21 bits of the pattern).
+    Returns the f32 binning's BinnedInstances: feats_sorted [10, NK] with
+    absolute mean2d, gid_sorted, tile ranges, num_instances, num_large.
+    `pc` comes from compact_gaussians_packed(..., with_orig=True)."""
+    if config.nmid:
+        raise ValueError("3-tier (nmid) binning is packed-eval only; the "
+                         "training expansion is 2-tier")
+    _check_packed_grid(num_tiles_x, num_tiles_y, config)
+    nc, km, ks = config.compact, config.kmax, config.ksmall
+    if nc > 1 << 16:
+        raise ValueError("packed_train packs the compact id into 16 bits: "
+                         "compact <= 2^16")
+    num_tiles = num_tiles_x * num_tiles_y
+    dev = pc.dmeta.device
+    base = torch.arange(nc, device=dev)
+    # p_b with its rect corner bits replaced by the compact id; the
+    # expansion still reads the corner from p_b (column 4)
+    p_bg = (pc.cols[4] & 0xFFFF) | (base << 16)
+    cols = torch.cat([pc.cols, p_bg[None]])
+    touched = _touched(pc.dmeta)
+    if ks:
+        sel_key = torch.where(touched <= ks, km + 1, km - touched)
+        sel = torch.sort(sel_key, stable=True).indices
+        inst, num_instances = _expand_tiers(cols, pc.dmeta, base, sel,
+                                            num_tiles_x, num_tiles, config)
+        num_large = (touched > ks).sum(dtype=torch.int32)
+    else:
+        inst = _expand_tier(cols, pc.dmeta, base, 0, km, num_tiles_x,
+                            num_tiles)
+        num_instances = touched.sum(dtype=torch.int32)
+        num_large = torch.zeros((), dtype=torch.int32, device=dev)
+
+    ukey_sorted, cols_s, tile_start, tile_stop = _sort_instances(
+        cols, inst, num_tiles)
+    tile_sorted = ukey_sorted >> DEPTH_KEY_BITS
+    xr, yr = _unpack2f16(cols_s[0])
+    tile_c = torch.clamp(tile_sorted, max=num_tiles - 1)
+    ty_i = tile_c // num_tiles_x
+    tx_i = tile_c - ty_i * num_tiles_x
+    ca, cb = _unpack2f16(cols_s[1])
+    cc, op = _unpack2f16(cols_s[2])
+    r, g = _unpack2f16(cols_s[3])
+    b = _f16_from_bits(cols_s[5])
+    depth = as_u32_bits((ukey_sorted & _DKEY_MASK)
+                        << (32 - DEPTH_KEY_BITS)).view(torch.float32)
+    feats_sorted = torch.stack([
+        xr + tx_i.to(torch.float32) * 16.0, yr + ty_i.to(torch.float32) * 16.0,
+        ca, cb, cc, op, r, g, b, depth])
+    return BinnedInstances(
+        feats_sorted=feats_sorted,
+        gid_sorted=(cols_s[5] >> 16).to(torch.int32),
+        tile_start=tile_start,
+        tile_stop=tile_stop,
+        num_instances=num_instances,
+        num_large=num_large,
+    )

@@ -3,7 +3,8 @@ eval forwards), their plain PyTorch versions, the autograd.Function around
 the training pipeline and the eval pipeline `binned_blend_eval`.
 
 Port of segs_slam_tpu/ops/rasterizer/blend.py (`binned_blend`, a custom VJP
-over compaction + sort + the Pallas kernels `_fwd_kernel` / `_bwd_kernel`;
+over compaction + sort (f32 or packed) + the Pallas kernels `_fwd_kernel` /
+`_bwd_kernel`;
 `binned_blend_eval` over the packed binning and `_fwd_kernel_eval_packed` /
 `_fwd_kernel_eval`). The kernels are hand-written CUDA for Hopper in
 `csrc/blend_fwd.cu`, `csrc/blend_bwd.cu` and `csrc/blend_eval.cu`;
@@ -38,6 +39,7 @@ from segs_slam_tpu_torch.ops.rasterizer.binning import (
     compact_gaussians_packed,
     expand_and_sort,
     expand_and_sort_packed,
+    expand_and_sort_packed_train,
 )
 from segs_slam_tpu_torch.ops.rasterizer.preprocess import RasterConfig
 
@@ -519,14 +521,36 @@ def blend_forward_eval_cuda(feats, tile_start, tile_stop, bg, tiles_x,
 blend_forward_eval_cuda.launches = 0  # K4 launches, read by chip_smoke.py
 
 
+def uses_packed_train(config: RasterConfig, tiles_x: int) -> bool:
+    """Whether the training blend bins through the packed sorts: the JAX
+    `_binned_blend_fwd`'s gate (blend.py:962-964). packed_train on, 16 px
+    tiles, at most 63 tile columns, kmax <= 31 and compact <= 2^16; else
+    the f32 binning, as in JAX."""
+    return (config.packed_train and config.tile == 16 and tiles_x <= 63
+            and config.kmax <= 31 and config.compact <= 1 << 16)
+
+
+# training blends by binning ("packed" or "f32"), read by chip_smoke.py
+train_binnings = {"packed": 0, "f32": 0}
+
+
 class _BinnedBlend(torch.autograd.Function):
-    """Compaction + expansion + sort + K1 forward; K2 + the gradient routing
-    of the JAX `_binned_blend_bwd` backward."""
+    """Compaction + expansion + sort (the f32 or the packed training
+    binning) + K1 forward; K2 + the gradient routing of the JAX
+    `_binned_blend_bwd` backward."""
 
     @staticmethod
     def forward(ctx, feats, depth, bg, aux, config, tiles_x, tiles_y):
-        cg = compact_gaussians(feats, dict(aux, depth=depth), config)
-        binned = expand_and_sort(cg, tiles_x, tiles_y, config)
+        aux = dict(aux, depth=depth)
+        if uses_packed_train(config, tiles_x):
+            cg = compact_gaussians_packed(feats, aux, config, with_orig=True)
+            binned = expand_and_sort_packed_train(cg, tiles_x, tiles_y,
+                                                  config)
+            train_binnings["packed"] += 1
+        else:
+            cg = compact_gaussians(feats, aux, config)
+            binned = expand_and_sort(cg, tiles_x, tiles_y, config)
+            train_binnings["f32"] += 1
         color, final_t, depth_img, ncontrib = blend_forward(
             binned.feats_sorted, binned.tile_start, binned.tile_stop, bg,
             tiles_x, config)
@@ -572,11 +596,13 @@ def binned_blend(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     aux: rect_min_x, rect_min_y, rect_w, touched (int32), depth (f32),
     alive (bool), each (N,); only depth carries a gradient (the
     expected-depth cotangent flows back through it). bg: (3,).
+    With config.packed_train, the binning is the packed one where
+    `uses_packed_train` allows it (JAX's own gate), else the f32 one.
     Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
     n_contrib [nt,1,P] int32, num_instances, num_compact)."""
-    if config.packed_train or config.sel_direct or config.pack8:
-        raise ValueError("the packed binning is not ported; use a config "
-                         "with packed_train, sel_direct and pack8 off")
+    if config.sel_direct or config.pack8:
+        raise ValueError("sel_direct and pack8 are eval binnings; the "
+                         "training blend takes neither")
     rest = {k: v for k, v in aux.items() if k != "depth"}
     return _BinnedBlend.apply(feats, aux["depth"], bg.to(torch.float32), rest,
                               config, tiles_x, tiles_y)

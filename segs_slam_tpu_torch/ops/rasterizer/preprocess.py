@@ -26,8 +26,9 @@ class RasterConfig:
     gets ksmall slots, the nlarge largest footprints get up to kmax). The
     3-tier (kmid/nmid), sel_direct and pack8 fields drive the packed eval
     binning (binning.py, blend.py:binned_blend_eval; `eval_variant` turns
-    them on). kanchor and packed_train are not implemented: the eval binning
-    rejects kanchor and the training blend rejects every packed field.
+    them on); packed_train lets the training blend bin through the packed
+    sorts where they fit (blend.py:uses_packed_train). kanchor is not
+    implemented: the eval binning rejects it.
     """
 
     tile: int = 16

@@ -137,15 +137,30 @@ def low_freq_loss(img1: torch.Tensor, img2: torch.Tensor,
     return loss_la + loss_lp
 
 
-def _bilinear_resize(img: torch.Tensor, scale: float) -> torch.Tensor:
-    """Bilinear resize by `scale` with the JAX version's
+def masked_image_metrics(img: torch.Tensor, gt: torch.Tensor):
+    """(masked image, psnr, ssim, psnr_gs) of an eval render against its
+    ground truth, both masked to the pixels where gt is not black (the
+    JAX Trainer's `_eval_metrics`)."""
+    mask = (gt != 0.0).any(dim=0, keepdim=True).float()
+    img_m, gt_m = img * mask, gt * mask
+    return (img_m, psnr(img_m, gt_m), ssim(img_m, gt_m),
+            psnr_gaussian_splatting(img_m, gt_m))
+
+
+def resize_bilinear(img: torch.Tensor, height: int,
+                    width: int) -> torch.Tensor:
+    """(C, H, W) -> (C, height, width) with the JAX version's
     jax.image.resize(..., "bilinear") semantics, which anti-alias when they
     downscale: F.interpolate needs antialias=True to match (without it the
     two differ by more than 0.1 at scales 0.5 and 0.25)."""
-    _, h, w = img.shape
-    nh, nw = int(round(h * scale)), int(round(w * scale))
-    return F.interpolate(img[None], size=(nh, nw), mode="bilinear",
+    return F.interpolate(img[None], size=(height, width), mode="bilinear",
                          align_corners=False, antialias=True)[0]
+
+
+def _bilinear_resize(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """Bilinear resize by `scale` (see resize_bilinear)."""
+    _, h, w = img.shape
+    return resize_bilinear(img, int(round(h * scale)), int(round(w * scale)))
 
 
 def multi_scale_loss(pred: torch.Tensor, gt: torch.Tensor,

@@ -201,10 +201,11 @@ def test_blend_dispatch_and_guards():
            "depth": torch.rand(n), "alive": torch.ones(n, dtype=torch.bool)}
     out = tblend.binned_blend(pay, aux, bg, cfg, 2, 1)  # differentiable now
     assert out[0].requires_grad and not out[3].requires_grad
-    with pytest.raises(ValueError, match="packed"):
+    # the eval binnings are refused on the training path, as in JAX
+    with pytest.raises(ValueError, match="sel_direct"):
         tblend.binned_blend(pay.detach(), aux, bg,
-                            RasterConfig(compact=64, kmax=4,
-                                         packed_train=True), 2, 1)
+                            RasterConfig(compact=64, kmax=4, ksmall=2,
+                                         nlarge=8, sel_direct=True), 2, 1)
 
 
 def stress_tiles(g):

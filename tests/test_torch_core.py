@@ -99,11 +99,15 @@ TRAINING_SLICE = (
 EVAL_SLICE = ("eval", "eval.metrics", "eval.recorder", "eval.harness",
               "models.renderer", "ops.rasterizer.binning",
               "apps.render_views")
+SLAM_SLICE = ("slam.protocol", "slam.frontends", "slam.producers",
+              "slam.mapper", "io.checkpoint", "io.config_yaml",
+              "io.datasets", "core.undistort", "apps.common",
+              "apps.slam_rgbd", "utils.make_rgbd_dataset")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training and eval slices'
-    included, leaves JAX out of sys.modules."""
+    """Importing every module of the port, the training, eval and SLAM
+    slices' included, leaves JAX out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import segs_slam_tpu_torch as pkg\n"
@@ -116,8 +120,8 @@ def test_port_imports_no_jax():
         "need = {'segs_slam_tpu_torch.' + n for n in (%r)}\n"
         "missing = sorted(need - set(names))\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 42 else 0)\n"
-    ) % (TRAINING_SLICE + EVAL_SLICE,)
+        "sys.exit(1 if bad or missing or len(names) < 56 else 0)\n"
+    ) % (TRAINING_SLICE + EVAL_SLICE + SLAM_SLICE,)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])

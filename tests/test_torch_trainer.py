@@ -154,9 +154,15 @@ def test_train_state_round_trip(trained_jax_state):
     assert back.keys() == ref.keys()
     for name, val in ref.items():
         np.testing.assert_array_equal(back[name], val, err_msg=name)
-    tree["pose"] = np.zeros((2, 6), np.float32)
-    with pytest.raises(ValueError, match="pose"):
-        train_state_from_jax(tree)
+    # pose rows and their moments cross too
+    rng = np.random.default_rng(5)
+    for name in ("pose", "pose_ema"):
+        tree[name] = rng.normal(size=(2, 6)).astype(np.float32)
+    for m in ("mu", "nu"):
+        tree["adam"][m]["pose"] = rng.normal(size=(2, 6)).astype(np.float32)
+    back = _flat(train_state_to_numpy(train_state_from_jax(tree)))
+    for name, val in _flat(tree).items():
+        np.testing.assert_array_equal(back[name], val, err_msg=name)
 
 
 def test_trainer_iterations_match_jax(tmp_path):
