@@ -72,11 +72,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and two pyramid sub-levels from a YAML, for 550 iterations: the image
      sizes trained (three levels), pose rows folded, refinement gains (none
      negative), finite losses.
+ 10. apps, in a process of its own (chip_smoke.py --apps, which the
+     script starts and waits for): the offline and stereo entry points at
+     their full widths, only the frame count and the iteration budget cut.
+     10c: train_colmap on
+     make_colmap_dataset's scene at both defaults (48 views at 640x480,
+     8,000 gaussians, 12,000 sparse points; capacity 2^16, compact 2^16,
+     kmax 8, ksmall 4, nlarge 2^13, the f32 training binning), 1,700
+     iterations with --out: ms/iter, evaluate() PSNR and SSIM before and
+     after training (the gain must be at least 3 dB), active anchors after
+     the two densify adjusts, every step on the f32 binning with K1 and K2,
+     K3 once per keyframe in the app's evaluation (the untrained map's
+     evaluation is this script's and its launches are counted apart), the
+     --out train state reloaded equal, and K1/K2 against their plain
+     versions on 8 of its steps at phase 6's gates. 10d: slam_stereo
+     --pre-rectified --tracker oracle on make_stereo_dataset's sequence at
+     both defaults (120 pairs at 640x480, baseline 0.11; kmax 16, the packed
+     training binning), 600 iterations: ms/iter, every step on the packed
+     binning with K1 and K2, finite losses, PSNR, SSIM and L1 of the
+     keyframes (K3), ATE against the loader's ground truth (at most 1e-3 m),
+     the SGM pseudo-depth's valid share, and K1/K2 against their plain
+     versions on 8 of its steps at phase 6's gates. The native
+     tracker's runs (slam_rgbd --tracker native, slam_mono) are not here:
+     the card's host has no OpenCV 4 to build the tracker against.
 Then ranks the kernels by the device time the main path loses in them
 (launches x (device ms - bound ms)) and prints a JSON line with each
 kernel's numbers ("ms" is its device time, "call_ms" its call time,
 "pixels_per_thread" the pixels a thread of the instance its wrapper
-launched on those inputs), then, as the last line, {"ok": true, "device":
+launched on those inputs; K1's and K2's numbers on phase 10's steps under
+"numbers_by_path"), then, as the last line, {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -132,6 +156,13 @@ SLAM_WINDOW = (1001, 20)  # profiler window: first iteration, iterations
 SLAM_CHECKED = (1651, 8)  # K1/K2 against plain: first iteration, steps
 PYRAMID_YAML = ("%YAML:1.0\nGausPyramid.do: 1\n"
                 "GausPyramid.num_sub_levels: 2\n")
+# Phase 10: train_colmap cut from 30,000 to 1,700 iterations, so that
+# densification adjusts at 1,600 and 1,700 (update_from 1,500, interval
+# 100, as in run A); slam_stereo cut from 30,000 to 600
+COLMAP_ITERS = 1700
+COLMAP_CHECKED = (1651, 8)  # K1/K2 against plain: first iteration, steps
+STEREO_ITERS = 600
+STEREO_CHECKED = (551, 8)  # K1/K2 against plain: first iteration, steps
 
 # For the bounds: H100 SXM HBM3 rate and FP32 peak outside the tensor cores
 # (NVIDIA's data sheet, 700 W), and the FP32 operations per (pixel,
@@ -412,6 +443,10 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"nvcc {nvcc[-1] if nvcc else '?'} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    f32_matmuls()
+
+
+def f32_matmuls():
     torch.backends.cuda.matmul.allow_tf32 = False  # decoders, SSIM in f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1679,6 +1714,239 @@ def phase_slam(dev) -> dict:
             "launches_b": b["launches"]}
 
 
+def _tensors_equal(a, b) -> bool:
+    """Two trees of dataclasses, modules, dicts and sequences equal, leaf
+    by leaf."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, torch.nn.Module):
+        return _tensors_equal(a.state_dict(), b.state_dict())
+    if dataclasses.is_dataclass(a):
+        return all(_tensors_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            _tensors_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tensors_equal, a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def colmap_run(dev) -> dict:
+    """Phase 10c: the offline train_colmap app on its maker's scene at both
+    defaults (48 views at 640x480, 8,000 gaussians, 12,000 sparse points;
+    capacity 2^16, compact 2^16, kmax 8, ksmall 4, nlarge 2^13, the f32
+    training binning) for COLMAP_ITERS iterations, with --out."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    import segs_slam_tpu_torch.train.trainer as tr
+    from segs_slam_tpu_torch.apps import train_colmap
+    from segs_slam_tpu_torch.io.checkpoint import load_train_state
+    from segs_slam_tpu_torch.utils import make_colmap_dataset
+
+    scene, out = WORK / "colmap_scene", WORK / "colmap_out"
+    t0 = time.perf_counter()
+    make_colmap_dataset.main(["--out", str(scene), "--device", dev.type])
+    print(f"[colmap] scene by make_colmap_dataset in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    # the untrained map's evaluation, taken after initialize_map and so
+    # outside the app's training clock; its launches are this script's own
+    # work, read apart and taken off the app's
+    before, own = {}, {}
+    init = tr.Trainer.initialize_map
+
+    def initialize_then_evaluate(trainer, *args, **kw):
+        n = init(trainer, *args, **kw)
+        at = read_launches()
+        before.update(trainer.evaluate())
+        trainer.reset_eval_renderer()
+        _sync(trainer.device)
+        own.update({k: v - at[k] for k, v in read_launches().items()})
+        return n
+
+    for k in blend.train_binnings:
+        blend.train_binnings[k] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    tr.Trainer.initialize_map = initialize_then_evaluate
+    try:
+        with SlamProbe(dev, capture=COLMAP_CHECKED) as probe:
+            res = train_colmap.main(["--scene", str(scene), "--iters",
+                                     str(COLMAP_ITERS), "--out", str(out),
+                                     "--device", dev.type])
+    finally:
+        tr.Trainer.initialize_map = init
+    launches = {k: v - own[k] for k, v in read_launches().items()}
+    binnings = dict(blend.train_binnings)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    t = res["trainer"]
+    losses = finite_losses(probe, "train_colmap")
+    back = load_train_state(out / "ckpt", device=dev)
+    same = back.step == t.state.step and _tensors_equal(back, t.state)
+    gain = res["psnr"] - before.get("psnr", float("nan"))
+    print(f"[colmap] train_colmap, {res['n_keyframes']} views at 640x480, "
+          f"{res['iterations']} iterations: {res['ms_per_iter']:.3f} ms/iter "
+          f"({1000.0 / res['ms_per_iter']:.2f} iters/s, host clock around "
+          f"Trainer.train to a synchronised device); evaluate() PSNR "
+          f"{before.get('psnr', float('nan')):.3f} -> {res['psnr']:.3f} dB "
+          f"(+{gain:.3f}), SSIM {before.get('ssim', float('nan')):.4f} -> "
+          f"{res['ssim']:.4f}; active anchors "
+          f"{int(t.state.anchors.num_active())} after {probe.adjusts} "
+          f"densify adjusts; training binnings {binnings}; launches "
+          f"{launches} (the untrained map's evaluation apart: {own}); loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak "
+          f"device memory {peak_gib:.2f} GiB; --out train state reloads "
+          f"equal: {same}", flush=True)
+    if res["iterations"] != COLMAP_ITERS:
+        fail(f"train_colmap trained {res['iterations']} iterations")
+    if binnings["f32"] != COLMAP_ITERS or binnings["packed"]:
+        fail(f"train_colmap's steps did not all take the f32 training "
+             f"binning: {binnings}")
+    if launches["blend_bwd"] != COLMAP_ITERS \
+            or launches["blend_fwd"] < COLMAP_ITERS \
+            or launches["blend_eval_packed"] != res["n_keyframes"]:
+        fail(f"train_colmap launched {launches}")
+    if probe.adjusts != 2:
+        fail(f"train_colmap densified {probe.adjusts} times, expected 2")
+    if not gain >= 3.0:
+        fail(f"train_colmap gained {gain} dB of PSNR, below 3 dB")
+    if not same:
+        fail("the train state train_colmap wrote to --out reloads "
+             "different")
+    if len(probe.captured) != COLMAP_CHECKED[1]:
+        fail(f"{len(probe.captured)} blend backwards captured in "
+             f"train_colmap, expected {COLMAP_CHECKED[1]}")
+    kernels = hold_training_kernels(
+        probe.captured, t.raster_config,
+        "train_colmap's f32-binning steps at 640x480", "colmap")
+    return {"launches": launches, "kernels": kernels}
+
+
+def stereo_run(dev) -> dict:
+    """Phase 10d: slam_stereo --pre-rectified --tracker oracle on its
+    maker's sequence at both defaults (120 pairs at 640x480, baseline 0.11;
+    kmax 16, the packed training binning) for STEREO_ITERS iterations."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    from segs_slam_tpu_torch.apps import slam_stereo
+    from segs_slam_tpu_torch.core import se3
+    from segs_slam_tpu_torch.core.camera import Camera
+    from segs_slam_tpu_torch.eval import harness, metrics
+    from segs_slam_tpu_torch.io import datasets
+    from segs_slam_tpu_torch.utils import make_stereo_dataset
+
+    seq, out = WORK / "stereo_seq", WORK / "stereo_out"
+    t0 = time.perf_counter()
+    make_stereo_dataset.main(["--out", str(seq), "--device", dev.type])
+    print(f"[stereo] sequence by make_stereo_dataset in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    for k in blend.train_binnings:
+        blend.train_binnings[k] = 0
+    reset_launches()
+    with SlamProbe(dev, capture=STEREO_CHECKED) as probe:
+        res = slam_stereo.main(["--path", str(seq), "--out", str(out),
+                                "--pre-rectified", "--tracker", "oracle",
+                                "--iters-budget", str(STEREO_ITERS),
+                                "--device", dev.type])
+    launches = read_launches()
+    binnings = dict(blend.train_binnings)
+    losses = finite_losses(probe, "slam_stereo")
+    run = harness.evaluate_run(out)
+    l1 = png_l1(out)
+    pairs = datasets.load_euroc_stereo(seq)
+    _, est, _ = metrics.load_tum_trajectory(out / "CameraTrajectory_TUM.txt")
+    gt = np.stack([
+        -se3.quat_to_rotmat(torch.as_tensor(np.asarray(
+            fr.quat, np.float32))).numpy().T @ np.asarray(fr.trans)
+        for fr, _ in pairs[:len(est)]])
+    ate = metrics.ate_rmse(est, gt)["ate_rmse"] if len(est) else np.inf
+    # the app's SGM pseudo-depth (_depth_from_disparity: strided
+    # semi-global matching, frontends.stereo_block_matching) on the keyframe
+    # pairs: its valid share and its median relative error against the
+    # maker's ground-truth depth
+    calib = json.loads((seq / "calib.json").read_text())
+    cam = Camera(camera_id=0, width=calib["width"], height=calib["height"],
+                 fx=calib["fx"], fy=calib["fy"], cx=calib["cx"],
+                 cy=calib["cy"])
+    valid, rel = [], []
+    for fr, right in pairs[::10]:
+        d = slam_stereo._depth_from_disparity(
+            datasets._imread(fr.rgb_path, grayscale=True),
+            datasets._imread(right, grayscale=True), cam, calib["baseline"])
+        ts = Path(fr.rgb_path).stem
+        d_gt = np.load(seq / "mav0" / "depth0" / f"{ts}.npy")
+        ok = (d > 0) & (d_gt > 0)
+        valid.append(float((d > 0).mean()))
+        rel.append(float(np.median(np.abs(d[ok] - d_gt[ok]) / d_gt[ok])))
+    t = res["trainer"]
+    n_kf = len(t.scene.keyframes)
+    print(f"[stereo] slam_stereo --pre-rectified --tracker oracle, "
+          f"{len(pairs)} pairs at 640x480, {n_kf} keyframes, "
+          f"{res['iterations']} iterations: {res['ms_per_iter']:.3f} ms/iter "
+          f"({1000.0 / res['ms_per_iter']:.2f} iters/s, host clock around "
+          f"Mapper.run to a synchronised device); training binnings "
+          f"{binnings}; launches {launches}; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; record_all_keyframes read back by the "
+          f"harness: PSNR {run.get('psnr', float('nan')):.3f} dB, SSIM "
+          f"{1.0 - run.get('dssim', float('nan')):.4f}, L1 {l1:.5f}; ATE "
+          f"RMSE {ate:.3e} m over {len(est)} frames; SGM "
+          f"pseudo-depth on {len(valid)} keyframe pairs: valid on "
+          f"{100 * np.mean(valid):.1f} % of pixels, median relative error "
+          f"{np.median(rel):.4f} against the maker's depth", flush=True)
+    if res["iterations"] != STEREO_ITERS:
+        fail(f"slam_stereo trained {res['iterations']} iterations")
+    if binnings["packed"] != STEREO_ITERS or binnings["f32"]:
+        fail(f"slam_stereo's steps did not all take the packed training "
+             f"binning: {binnings}")
+    if launches["blend_bwd"] != STEREO_ITERS \
+            or launches["blend_fwd"] < STEREO_ITERS \
+            or launches["blend_eval_packed"] < n_kf:
+        fail(f"slam_stereo launched {launches}")
+    if not ate <= 1e-3:
+        fail(f"slam_stereo's ATE {ate} m is above 1e-3 m")
+    if not np.isfinite(run.get("psnr", np.nan)):
+        fail(f"slam_stereo's recorded metrics are not finite: {run}")
+    if len(probe.captured) != STEREO_CHECKED[1]:
+        fail(f"{len(probe.captured)} blend backwards captured in "
+             f"slam_stereo, expected {STEREO_CHECKED[1]}")
+    kernels = hold_training_kernels(
+        probe.captured, t.raster_config,
+        "slam_stereo's kmax-16 packed-binning steps at 640x480", "stereo")
+    return {"launches": launches, "kernels": kernels}
+
+
+def phase_apps(dev) -> dict:
+    """Phase 10: the offline and stereo entry points (see the module
+    docstring)."""
+    return {"train_colmap": colmap_run(dev), "slam_stereo": stereo_run(dev)}
+
+
+def phase_apps_apart() -> dict:
+    """Phase 10 in a process of its own (`chip_smoke.py --apps`), which
+    writes phase_apps' result to WORK/apps.json. After phases 3-9 in the
+    same process, torch.profiler (torch 2.11 on an H100) recorded no device
+    activity at all in 10d's kernel timing, while phase 10d alone in a
+    process timed its kernels; a fresh process gives phase 10 the profiler
+    it has alone."""
+    out = WORK / "apps.json"
+    out.unlink(missing_ok=True)
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--apps"], timeout=800)
+    if res.returncode != 0 or not out.exists():
+        fail(f"phase 10 (chip_smoke.py --apps) exited {res.returncode}")
+    return json.loads(out.read_text())
+
+
+def apps_main():
+    """`chip_smoke.py --apps`: phase 10 alone, its result in
+    WORK/apps.json."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    f32_matmuls()
+    WORK.mkdir(parents=True, exist_ok=True)
+    apps = phase_apps(torch.device("cuda"))
+    (WORK / "apps.json").write_text(json.dumps(apps))
+
+
 def print_ranking(launches, trained, at_640):
     """The kernels ranked by the device time the main path loses in them:
     launches in the train_synthetic run x (device ms - bound ms), on the
@@ -1752,15 +2020,23 @@ def main():
     print_ranking(launches, kernels, at_640)
     slam = phase_slam(dev)
     print_slam_ranking(slam["launches"], slam["kernels"], kernels)
+    apps = phase_apps_apart()
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     # launches: this slice's main path, run A of slam_rgbd (phase 9), with
     # each path's counts beside them; K1 and K2 numbers from run A's
-    # packed-binning steps (phase 9), K3's from the trained map (phase 6),
-    # K4's from the 640x480 view (phase 3)
+    # packed-binning steps (phase 9), with those on train_colmap's and
+    # slam_stereo's own steps (phase 10) under numbers_by_path; K3's from
+    # the trained map (phase 6), K4's from the 640x480 view (phase 3)
     kernels.update(slam["kernels"])
+    for name in ("blend_fwd", "blend_bwd"):
+        kernels[name]["numbers_by_path"] = {
+            path: apps[path]["kernels"][name]
+            for path in ("train_colmap", "slam_stereo")}
     by_path = {"slam_rgbd": slam["launches"], "slam_rgbd_b":
-               slam["launches_b"], "train_synthetic": launches}
+               slam["launches_b"], "train_synthetic": launches,
+               "train_colmap": apps["train_colmap"]["launches"],
+               "slam_stereo": apps["slam_stereo"]["launches"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": slam["launches"][name], **kernels[name],
@@ -1772,4 +2048,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    apps_main() if sys.argv[1:] == ["--apps"] else main()

@@ -15,8 +15,8 @@ maker's, from the same numpy seeds; `render_frames` returns a frame's
 arrays before they are encoded.
 
 With --loop the trajectory is a closed orbit that revisits its starting pose
-(a ground-truth loop-closure scenario). --imu is refused until the inertial
-stream's maker (segs_slam_tpu/utils/make_imu.py) is ported.
+(a ground-truth loop-closure scenario). With --imu an inertial stream
+derived from the trajectory is written to <out>/imu.txt (utils/make_imu.py).
 
     python -m segs_slam_tpu_torch.utils.make_rgbd_dataset --out seq/ \
         [--frames 200] [--width 640] [--height 480] [--device cuda]
@@ -34,6 +34,7 @@ from segs_slam_tpu_torch.core import se3
 from segs_slam_tpu_torch.core.camera import Camera
 from segs_slam_tpu_torch.core.keyframe import Keyframe
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig, rasterize
+from segs_slam_tpu_torch.utils.make_imu import derive_imu, write_imu_txt
 from segs_slam_tpu_torch.utils.synthetic import make_room_scene, make_trajectory
 
 DEPTH_SCALE = 6553.5  # Replica convention: uint16 = meters * 6553.5
@@ -146,17 +147,25 @@ def main(argv=None):
     p.add_argument("--loop", action="store_true",
                    help="closed-orbit trajectory for loop-closure testing")
     p.add_argument("--imu", action="store_true",
-                   help="an IMU stream (imu.txt); not ported yet")
+                   help="derive a 200 Hz IMU stream (imu.txt) from the "
+                        "trajectory (reference analogue: the inertial entry "
+                        "points; see utils/make_imu.py)")
+    p.add_argument("--imu-rate", type=float, default=200.0)
+    p.add_argument("--imu-gyro-bias", type=float, nargs=3, default=[0, 0, 0],
+                   help="constant gyro bias [rad/s] baked into the stream "
+                        "(exercises the tracker's online bias estimator)")
+    p.add_argument("--imu-gravity", type=float, nargs=3,
+                   default=[0.0, 9.81, 0.0],
+                   help="world gravity vector the accelerometer measures "
+                        "against (non-default exercises the tracker's "
+                        "online gravity initializer)")
     p.add_argument("--photometric", action="store_true",
                    help="per-frame exposure / white-balance variation "
                         "(reference: src/gaussian_renderer.cpp:256-270)")
+    p.add_argument("--cam-fps", type=float, default=30.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.imu:
-        raise SystemExit("--imu: the IMU stream's maker "
-                         "(segs_slam_tpu/utils/make_imu.py) is not ported "
-                         "yet")
 
     from PIL import Image
 
@@ -183,6 +192,15 @@ def main(argv=None):
         traj_rows.append(" ".join(f"{v:.9f}" for v in C2W.reshape(-1)))
     (out / "traj.txt").write_text("\n".join(traj_rows) + "\n")
     print(f"wrote {args.frames} RGB-D frames to {out}")
+
+    if args.imu:
+        times, gyro, accel = derive_imu(
+            poses, cam_fps=args.cam_fps, imu_rate=args.imu_rate,
+            gyro_noise=2e-4, accel_noise=2e-3, seed=args.seed,
+            gyro_bias=tuple(args.imu_gyro_bias),
+            gravity_w=np.asarray(args.imu_gravity, float))
+        write_imu_txt(out / "imu.txt", times, gyro, accel)
+        print(f"wrote {len(times)} IMU samples to {out / 'imu.txt'}")
 
 
 if __name__ == "__main__":

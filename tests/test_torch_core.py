@@ -103,11 +103,15 @@ SLAM_SLICE = ("slam.protocol", "slam.frontends", "slam.producers",
               "slam.mapper", "io.checkpoint", "io.config_yaml",
               "io.datasets", "core.undistort", "apps.common",
               "apps.slam_rgbd", "utils.make_rgbd_dataset")
+NATIVE_SLICE = ("native.bindings", "utils.make_imu", "utils.make_dataset",
+                "utils.make_colmap_dataset", "utils.make_stereo_dataset",
+                "io.colmap", "apps.slam_mono", "apps.slam_stereo",
+                "apps.train_colmap")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training, eval and SLAM
-    slices' included, leaves JAX out of sys.modules."""
+    """Importing every module of the port, the training, eval, SLAM and
+    native-tracker slices' included, leaves JAX out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import segs_slam_tpu_torch as pkg\n"
@@ -120,8 +124,8 @@ def test_port_imports_no_jax():
         "need = {'segs_slam_tpu_torch.' + n for n in (%r)}\n"
         "missing = sorted(need - set(names))\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 56 else 0)\n"
-    ) % (TRAINING_SLICE + EVAL_SLICE + SLAM_SLICE,)
+        "sys.exit(1 if bad or missing or len(names) < 66 else 0)\n"
+    ) % (TRAINING_SLICE + EVAL_SLICE + SLAM_SLICE + NATIVE_SLICE,)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])

@@ -1,0 +1,18 @@
+"""The port's native tracker, monocular with an IMU: the analogue of
+tests/test_native.py::test_mono_inertial_scale_recovery (that test's body
+with the port's NativeTracker).
+"""
+
+import pytest
+
+import test_native
+from test_torch_native import (  # noqa: F401 (fixtures)
+    port_tracker,
+    serial_opencv,
+)
+
+pytestmark = pytest.mark.usefixtures("port_tracker", "serial_opencv")
+
+
+def test_mono_inertial_scale_recovery():
+    test_native.test_mono_inertial_scale_recovery()

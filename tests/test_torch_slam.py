@@ -33,6 +33,8 @@ from segs_slam_tpu.ops.rasterizer import rasterize as j_rasterize
 from segs_slam_tpu.slam import frontends as jfrontends
 from segs_slam_tpu.slam import producers as jproducers
 from segs_slam_tpu.slam import protocol as jprotocol
+from segs_slam_tpu.utils import make_imu as jmake_imu
+from segs_slam_tpu.utils import make_rgbd_dataset as jmaker
 from segs_slam_tpu_torch.apps import common, slam_rgbd
 from segs_slam_tpu_torch.core import Camera, Keyframe, se3
 from segs_slam_tpu_torch.eval import harness
@@ -40,6 +42,7 @@ from segs_slam_tpu_torch.io import checkpoint, config_yaml, datasets
 from segs_slam_tpu_torch.io.convert import decoders_from_jax, flatten_params
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
 from segs_slam_tpu_torch.slam import frontends, producers, protocol
+from segs_slam_tpu_torch.utils import make_imu
 from segs_slam_tpu_torch.utils import make_rgbd_dataset as maker
 from test_app_config import REF  # the reference's cfg/gaussian_mapper
 
@@ -268,8 +271,30 @@ def test_maker_arrays_match_jax():
         assert rgb.max() > 0.05 and (d > 0).mean() > 0.5
         np.testing.assert_allclose(rgb, ref_rgb, atol=2e-4, rtol=0)
         np.testing.assert_allclose(d, ref_d, atol=2e-4, rtol=1e-4)
-    with pytest.raises(SystemExit):
-        maker.main(["--out", "unused", "--imu"])
+
+
+def test_maker_imu_matches_jax(tmp_path):
+    """make_rgbd_dataset --imu (utils/make_imu.py's stream, with a gyro
+    bias, on the closed orbit) writes the JAX maker's imu.txt byte for
+    byte, and the stream reads back as derive_imu made it."""
+    args = ["--frames", "4", "--width", str(SEQ_W), "--height", str(SEQ_H),
+            "--gaussians", "300", "--loop", "--imu", "--imu-gyro-bias",
+            "0.01", "0", "-0.02"]
+    jmaker.main(["--out", str(tmp_path / "j")] + args)
+    maker.main(["--out", str(tmp_path / "t"), "--device", "cpu"] + args)
+    ours = (tmp_path / "t" / "imu.txt").read_bytes()
+    assert ours == (tmp_path / "j" / "imu.txt").read_bytes()
+    poses = maker.make_loop_trajectory(4)
+    times, gyro, accel = make_imu.derive_imu(
+        poses, gyro_noise=2e-4, accel_noise=2e-3, gyro_bias=(0.01, 0, -0.02))
+    ref = jmake_imu.derive_imu(poses, gyro_noise=2e-4, accel_noise=2e-3,
+                               gyro_bias=(0.01, 0, -0.02))
+    for a, b in zip((times, gyro, accel), ref):
+        np.testing.assert_array_equal(a, b)
+    back = make_imu.load_imu_txt(tmp_path / "t" / "imu.txt")
+    assert len(back[0]) == len(times) == 3 * 7
+    for a, b in zip(back, (times, gyro, accel)):
+        np.testing.assert_allclose(a, b, atol=1e-8)
 
 
 @pytest.fixture(scope="module")
@@ -389,8 +414,7 @@ def test_slam_rgbd_end_to_end(sequence, tmp_path):
 
 
 def test_slam_rgbd_refuses_unported(sequence, tmp_path):
-    """--tracker native and --viewer-port raise; nothing falls back."""
+    """--viewer-port raises; nothing falls back."""
     base = APP_ARGS + ["--path", str(sequence), "--out", str(tmp_path)]
-    for extra in (["--tracker", "native"], ["--viewer-port", "8000"]):
-        with pytest.raises(SystemExit):
-            slam_rgbd.main(base + extra)
+    with pytest.raises(SystemExit):
+        slam_rgbd.main(base + ["--viewer-port", "8000"])
