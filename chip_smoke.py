@@ -95,12 +95,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
      versions on 8 of its steps at phase 6's gates. The native
      tracker's runs (slam_rgbd --tracker native, slam_mono) are not here:
      the card's host has no OpenCV 4 to build the tracker against.
+ 11. the last modules, in a process of its own (chip_smoke.py --last),
+     each path read with the launch counts set to 0 just before it.
+     11a: the viewer app in checkpoint mode on 10c's --out train state,
+     served on a free port: /, /state and 20 /render requests on an orbit
+     at 480x480 (JPEGs of 480x480x3, K3 once a request); one frame before
+     JPEG against the same pose rendered with K3's plain version (at most
+     one 8-bit level apart); ms a request; K3 against its plain version on
+     the frame's binned input. 11b: slam_rgbd --tracker oracle on phase 9's
+     sequence, 300 iterations without and then with --viewer-port, a
+     client requesting /render every 100 ms meanwhile: every response 200
+     and a 480x480 frame, no render-thread error, finite losses; ms a
+     request and mapping ms/iter of both runs. 11c: rasterize(shs=...) at
+     degree 3 on phase 3's 640x480 view with seeded coefficients (the
+     map's opacities scaled by 4, so that alpha can reach the clamp), forward
+     and backward through K1 and K2, against the same call through the
+     plain versions on the card (image within 2e-4 where n_contrib is
+     equal on >= 99.99 % of pixels, gradients within 2e-4 of their
+     largest), and K1/K2 against their plain versions on its binned input
+     at phase 6's gates. 11d: the eval render of 10c's trained map with
+     kanchor = n_offsets - 2 (the direct selection, pack8): K3 against its
+     plain version, the anchors that overflow kanchor, the binned columns
+     equal to those without kanchor where none does. 11e: evaluate_run's
+     lpips column over 4 of run A's keyframe pairs with random
+     AlexNet-shaped weights (SEGS_LPIPS_WEIGHTS): the card against the CPU
+     within rel 2e-4. 11f: two gloo ranks on the card (chip_smoke.py
+     --dp-rank R WORK), one make_dp_train_step each on train_synthetic's
+     first keyframe at 256x256, replicated: the update equal to the
+     single-process step's (rtol 1e-4, atol 1e-5), the densify statistics'
+     deltas twice its, the ranks equal; each rank's launches and the
+     step's ms.
 Then ranks the kernels by the device time the main path loses in them
 (launches x (device ms - bound ms)) and prints a JSON line with each
 kernel's numbers ("ms" is its device time, "call_ms" its call time,
 "pixels_per_thread" the pixels a thread of the instance its wrapper
-launched on those inputs; K1's and K2's numbers on phase 10's steps under
-"numbers_by_path"), then, as the last line, {"ok": true, "device":
+launched on those inputs; K1's and K2's numbers on phase 10's steps and
+11c's, K3's on 11a's and 11d's inputs, under "numbers_by_path"), then, as
+the last line, {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -1947,6 +1978,669 @@ def apps_main():
     (WORK / "apps.json").write_text(json.dumps(apps))
 
 
+LAST_VIEWER_SIZE = 480
+LAST_CAPACITY = 2**16  # train_colmap's, whose --out state 11a and 11d load
+LAST_REQUESTS = 20  # /render requests of the checkpoint viewer
+LIVE_ITERS = 300  # slam_rgbd iterations with and without the live viewer
+LIVE_PERIOD_S = 0.1  # the live client's request period
+LPIPS_PAIRS = 4  # rendered / ground-truth PNG pairs of run A for LPIPS
+DP_RANKS = 2
+DP_TIMED = 5  # dp steps timed after the compared one
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_get(port: int, path: str, timeout: float = 120.0):
+    """(status, body, ms on the host clock) of one GET."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        body = r.read()
+        return r.status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _jpeg(body) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+
+class EvalBlendRoute:
+    """Within the block, K3's dispatcher (blend_forward_eval_packed, which
+    binned_blend_eval calls) keeps each call's arguments in `captured` and,
+    with plain=True, routes the call to K3's plain version on the same card
+    tensors."""
+
+    def __init__(self, plain: bool = False):
+        self.plain, self.captured = plain, []
+
+    def __enter__(self):
+        import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+
+        self._saved = blend.blend_forward_eval_packed
+        kernel = (blend.blend_forward_eval_packed_reference if self.plain
+                  else self._saved)
+
+        def route(*args):
+            self.captured.append(args)
+            return kernel(*args)
+
+        blend.blend_forward_eval_packed = route
+        return self
+
+    def __exit__(self, *exc):
+        import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+
+        blend.blend_forward_eval_packed = self._saved
+
+
+def held_k3(args, where: str, tag: str) -> dict:
+    """K3 against its plain version on one binned input (check_eval's
+    gate), with its device, call and plain times and bound."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+
+    with torch.inference_mode():
+        res = check_eval("blend_eval_packed", args)
+        torch.cuda.synchronize()
+        res["call_ms"] = cuda_ms(
+            lambda: blend.blend_forward_eval_packed_cuda(*args), reps=20,
+            warmup=3)
+        res["ms"] = kernel_ms(
+            [lambda: blend.blend_forward_eval_packed_cuda(*args)],
+            KERNEL_FUNCS["blend_eval_packed"])
+        res["plain_ms"] = cuda_ms(
+            lambda: blend.blend_forward_eval_packed_reference(*args), reps=5)
+    res.update(bound(res["work"]))
+    res["pixels_per_thread"] = pixels_per_thread(args[1], True)
+    print(f"[{tag}] K3 on {where}: max |err| {res['max_abs_err']:.3g} "
+          f"against its plain version; device {res['ms']:.4f} ms (profiler, "
+          f"mean of {DEVICE_REPS}+), call {res['call_ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), P {res['pixels_per_thread']}, "
+          f"{int((args[2] - args[1]).sum())} instances", flush=True)
+    if not res["ok"]:
+        fail(f"K3 disagrees with its plain version on {where}: max |err| "
+             f"{res['max_abs_err']}")
+    return {k: res[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                "bound_ms", "bound_by", "pixels_per_thread")}
+
+
+def viewer_checkpoint(dev) -> dict:
+    """11a: the viewer app in checkpoint mode on train_colmap's --out train
+    state (phase 10c), served on a free port: /, /state, then
+    LAST_REQUESTS /render requests on an orbit at 480x480, each a JPEG of
+    480x480x3; one frame before JPEG against the same pose rendered with
+    K3's plain version (at most one 8-bit level apart); ms a request, K3's
+    launches and its device time at 480x480."""
+    from segs_slam_tpu_torch.apps import viewer
+
+    size = LAST_VIEWER_SIZE
+    args = viewer.parse_args([
+        "--ckpt", str(WORK / "colmap_out" / "ckpt"), "--port", "0",
+        "--size", str(size), "--capacity", str(LAST_CAPACITY),
+        "--device", dev.type])
+    t0 = time.perf_counter()
+    render_pose, start, (w, h) = viewer.build_renderer(args)
+    setup_s = time.perf_counter() - t0
+    srv = viewer.make_server(render_pose, lambda: start, w, h, 0)
+    import threading
+
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        page = _http_get(port, "/")
+        state = json.loads(_http_get(port, "/state")[1])
+        poses = []
+        for i in range(LAST_REQUESTS):
+            a = 2 * np.pi * i / LAST_REQUESTS
+            pos = [state["pos"][0] + 0.3 * np.sin(a), state["pos"][1],
+                   state["pos"][2] + 0.3 * (1 - np.cos(a))]
+            poses.append((pos, 0.25 * np.sin(a), 0.1 * np.cos(a)))
+        reset_launches()
+        ms, lit = [], []
+        for pos, yaw, pitch in poses:
+            code, body, t = _http_get(
+                port, f"/render?x={pos[0]}&y={pos[1]}&z={pos[2]}&yaw={yaw}"
+                f"&pitch={pitch}")
+            frame = _jpeg(body)
+            if code != 200 or frame.shape != (size, size, 3):
+                fail(f"viewer /render gave {code}, a frame of {frame.shape}")
+            ms.append(t)
+            lit.append(float((frame.max(axis=2) > 8).mean()))
+        launches = read_launches()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    best = poses[int(np.argmax(lit))]
+    with EvalBlendRoute() as cap:
+        kernel = render_pose(*best)
+    with EvalBlendRoute(plain=True):
+        plain = render_pose(*best)
+    levels = int(np.abs(kernel.astype(int) - plain.astype(int)).max())
+    k3 = held_k3(cap.captured[0], f"the viewer's {size}x{size} frame",
+                 "viewer")
+    print(f"[viewer] checkpoint mode (train_colmap's --out state, capacity "
+          f"2^16, {size}x{size}, set-up with calibration {setup_s:.2f} s): "
+          f"/ {page[0]} in {page[2]:.2f} ms, /state {state}; "
+          f"{LAST_REQUESTS} /render requests: median "
+          f"{np.median(ms):.3f} ms, p90 {np.percentile(ms, 90):.3f} ms, min "
+          f"{min(ms):.3f} ms (host clock around the GET: render, JPEG, "
+          f"HTTP); lit share of the frames {min(lit):.3f}-{max(lit):.3f}; "
+          f"launches {launches}; the most lit frame before JPEG against "
+          f"K3's plain version: {levels} 8-bit levels apart", flush=True)
+    if page[0] != 200 or b"<img" not in page[1]:
+        fail("the viewer's page did not load")
+    if launches["blend_eval_packed"] != LAST_REQUESTS or any(
+            v for k, v in launches.items() if k != "blend_eval_packed"):
+        fail(f"the viewer's {LAST_REQUESTS} renders launched {launches}")
+    if levels > 1 or not max(lit) > 0:
+        fail(f"the viewer's frame is {levels} levels off its plain version "
+             f"(lit share {max(lit)})")
+    return {"launches": launches, "k3": k3, "ms_median": float(np.median(ms)),
+            "ms_p90": float(np.percentile(ms, 90))}
+
+
+def viewer_live(dev) -> dict:
+    """11b: slam_rgbd --tracker oracle on phase 9's sequence for LIVE_ITERS
+    iterations, first without and then with --viewer-port on a free port;
+    with it, a client thread requests /render every LIVE_PERIOD_S while
+    the app runs: every response 200 and a 480x480 frame, the render thread
+    raising nothing, the losses finite; ms a request and mapping ms/iter of
+    both runs."""
+    import threading
+
+    from segs_slam_tpu_torch.apps import slam_rgbd
+
+    seq = WORK / "slam_seq"
+    runs = {}
+    for live in (False, True):
+        label = "with the viewer" if live else "without the viewer"
+        argv = slam_argv(seq, WORK / f"live_{int(live)}", LIVE_ITERS, dev)
+        port = _free_port()
+        if live:
+            argv += ["--viewer-port", str(port)]
+        got, stop = [], threading.Event()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    code, body, t = _http_get(port, "/render?z=-0.5")
+                except OSError:  # not serving yet
+                    stop.wait(0.02)
+                    continue
+                got.append((code, _jpeg(body).shape, t, time.perf_counter()))
+                stop.wait(LIVE_PERIOD_S)
+
+        ct = threading.Thread(target=client, daemon=True)
+        if live:
+            ct.start()
+        reset_launches()
+        try:
+            with SlamProbe(dev) as probe:
+                res = slam_rgbd.main(argv)
+            t_end = time.perf_counter()
+        finally:
+            stop.set()
+            ct.join(timeout=120) if live else None
+        launches = read_launches()
+        losses = finite_losses(probe, f"slam_rgbd {label}")
+        th = res["viewer"]
+        if th is not None:
+            th.server.shutdown()
+            th.server.server_close()
+            th.join(timeout=30)
+        during = [g for g in got if g[3] <= t_end]
+        runs[live] = {"ms_per_iter": res["ms_per_iter"],
+                      "launches": launches, "served": len(during)}
+        msg = (f"[live] slam_rgbd {label}, {res['iterations']} iterations: "
+               f"{res['ms_per_iter']:.3f} ms/iter (host clock around "
+               f"Mapper.run to a synchronised device); launches {launches}; "
+               f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+        if live:
+            ms = [g[2] for g in during] or [float("nan")]
+            runs[live].update(ms_median=float(np.median(ms)),
+                              ms_p90=float(np.percentile(ms, 90)))
+            msg += (f"; {len(during)} renders served while the app ran "
+                    f"(one every {LIVE_PERIOD_S * 1e3:.0f} ms at most): "
+                    f"median {np.median(ms):.3f} ms, p90 "
+                    f"{np.percentile(ms, 90):.3f} ms a request (host clock "
+                    f"around the GET: the wait for the Trainer's lock, the "
+                    f"render, JPEG, HTTP); statuses "
+                    f"{sorted({g[0] for g in got})}; render-thread errors "
+                    f"{len(th.errors)}")
+            if res["iterations"] != LIVE_ITERS or not during or any(
+                    g[0] != 200 or g[1] != (480, 480, 3) for g in got):
+                fail(f"the live viewer answered {[g[:2] for g in got]} over "
+                     f"{res['iterations']} iterations")
+            if th.errors:
+                fail(f"the live viewer's render raised {th.errors!r}")
+        print(msg, flush=True)
+    extra_k3 = (runs[True]["launches"]["blend_eval_packed"]
+                - runs[False]["launches"]["blend_eval_packed"])
+    print(f"[live] mapping {runs[False]['ms_per_iter']:.3f} -> "
+          f"{runs[True]['ms_per_iter']:.3f} ms/iter with the viewer "
+          f"serving; K3 launches the viewer added: {extra_k3}", flush=True)
+    if extra_k3 < 1:
+        fail("the live viewer launched no K3")
+    return {"launches": runs[True]["launches"], "viewer_k3": extra_k3,
+            **{f"{k}_{'on' if live else 'off'}": v
+               for live, r in runs.items() for k, v in r.items()
+               if k != "launches"}}
+
+
+def sh_path(dev) -> dict:
+    """11c: rasterize(shs=...) at degree 3 on the kernel phase's 640x480
+    view of the seeded full-width map (its neural gaussians with their
+    opacities scaled by 4, seeded SH coefficients whose colours stay off
+    sh_to_color's clamp), forward and backward
+    through K1 and K2; the image and the gradients with respect to the
+    coefficients and the means against the same call through the plain
+    versions on the card; K1 and K2 against their plain versions on the
+    call's binned input (hold_training_kernels)."""
+    import segs_slam_tpu_torch.ops.rasterizer.blend as blend
+    from segs_slam_tpu_torch.core import Camera, Keyframe
+    from segs_slam_tpu_torch.io.convert import load_map
+    from segs_slam_tpu_torch.models.renderer import neural_gaussians_for_view
+    from segs_slam_tpu_torch.ops.rasterizer import RasterConfig, rasterize
+    from segs_slam_tpu_torch.ops.sh import num_sh_coeffs, rgb_to_sh
+
+    rc = RasterConfig(tile=16, compact=2**16, kmax=8, chunk=256, ksmall=4,
+                      nlarge=2**13)
+    anchors, decoders = load_map(WORK / "map.npz", dev)
+    mc = dataclasses.replace(decoders.config,
+                             capacity=anchors.anchor.shape[0])
+    w, h = 640, 480
+    cam = Camera(camera_id=0, width=w, height=h, fx=500.0, fy=500.0,
+                 cx=w / 2, cy=h / 2)
+    kf = Keyframe(kf_id=0, camera=cam, quat=[1, 0, 0, 0], trans=[0, 0, 0])
+    c = {k: torch.as_tensor(v, device=dev)
+         for k, v in kf.render_inputs().items()}
+    with torch.no_grad():
+        ng = neural_gaussians_for_view(anchors, decoders, c, w, h, mc, rc)[1]
+    g = torch.Generator().manual_seed(SEED + 11)
+    n = ng.xyz.shape[0]
+    shs0 = (0.03 * torch.randn(n, num_sh_coeffs(3), 3, generator=g)).to(dev)
+    shs0[:, 0] = rgb_to_sh(ng.color.clamp(0.2, 0.8))
+    cot = torch.randn(3, h, w, generator=g).to(dev)
+    bg = torch.tensor([0.25, 0.5, 0.75], device=dev)
+    # the seeded map's opacities top out near 0.22, where alpha never meets
+    # the 0.99 clamp; spread up to 0.87, so that the clamp is reached once
+    # hold_training_kernels raises those above 0.5
+    opacity = (4.0 * ng.opacity).clamp(max=0.95)
+
+    def run():
+        shs = shs0.clone().requires_grad_()
+        means = ng.xyz.detach().clone().requires_grad_()
+        out = rasterize(means, ng.scaling, ng.rotation, opacity,
+                        torch.zeros_like(means), c["world_view_transform"],
+                        c["full_proj_transform"], w, h, c["tan_fovx"],
+                        c["tan_fovy"], bg, config=rc, valid=ng.valid,
+                        shs=shs, sh_degree=3)
+        grads = torch.autograd.grad((out["image"] * cot).sum(),
+                                    [shs, means])
+        _sync(dev)
+        return out, grads
+
+    captured = []
+    saved = blend.blend_forward, blend.blend_backward
+
+    def keep(*args):
+        captured.append(args)
+        return saved[1](*args)
+
+    reset_launches()
+    blend.blend_backward = keep
+    try:
+        out_k, grads_k = run()
+    finally:
+        blend.blend_backward = saved[1]
+    launches = read_launches()
+    blend.blend_forward = blend.blend_forward_reference
+    blend.blend_backward = blend.blend_backward_reference
+    try:
+        out_p, grads_p = run()
+    finally:
+        blend.blend_forward, blend.blend_backward = saved
+    nc_eq = out_k["n_contrib"] == out_p["n_contrib"]
+    color_err = float((out_k["image"] - out_p["image"]).detach().abs()[
+        nc_eq.expand_as(out_p["image"])].max())
+    grad_err = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads_k, grads_p)]
+    print(f"[sh] rasterize(shs=..., sh_degree=3) at 640x480, {n} gaussians "
+          f"({int(ng.valid.sum())} valid): launches {launches}; against the "
+          f"same call through the plain versions on the card: n_contrib "
+          f"equal on {100 * float(nc_eq.float().mean()):.4f} % of pixels, "
+          f"colour there within {color_err:.3g}; gradient error / largest: "
+          f"shs {grad_err[0]:.3g}, means3d {grad_err[1]:.3g}", flush=True)
+    if launches["blend_fwd"] != 1 or launches["blend_bwd"] != 1:
+        fail(f"the SH render launched {launches}")
+    if float(nc_eq.float().mean()) < 0.9999 or color_err > 2e-4 \
+            or max(grad_err) > 2e-4 or not all(
+                bool(torch.isfinite(x).all()) for x in grads_k):
+        fail("the SH render on the kernels disagrees with its plain route")
+    kernels = hold_training_kernels(captured, rc, "the SH render at 640x480",
+                                    "sh")
+    return {"launches": launches, "kernels": kernels}
+
+
+def kanchor_path(dev) -> dict:
+    """11d: the eval render of train_colmap's trained 640x480 map (phase
+    10c's --out state) at its first view, with kanchor = n_offsets - 2 at
+    calibrate_eval_config's sizes (the direct selection, pack8): K3 against
+    its plain version on the binned input; the anchors that overflow
+    kanchor; where none does, the binned columns equal those without
+    kanchor, else the image's distance to the render without kanchor."""
+    from segs_slam_tpu_torch.core import Keyframe
+    from segs_slam_tpu_torch.io.checkpoint import load_train_state
+    from segs_slam_tpu_torch.io.colmap import read_scene
+    from segs_slam_tpu_torch.models.renderer import (
+        EvalRenderer,
+        calibrate_eval_config,
+        project_view,
+    )
+    from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
+    from segs_slam_tpu_torch.ops.rasterizer import binning as binning
+
+    ts = load_train_state(WORK / "colmap_out" / "ckpt", device=dev)
+    mc = dataclasses.replace(ts.decoders.config,
+                             capacity=ts.anchors.anchor.shape[0])
+    scene = read_scene(WORK / "colmap_scene" / "sparse" / "0")
+    cam0 = next(iter(scene.cameras.values()))
+    fx, fy, cx, cy = cam0.focal_and_center()
+    from segs_slam_tpu_torch.core import Camera
+
+    cam = Camera(camera_id=0, width=cam0.width, height=cam0.height, fx=fx,
+                 fy=fy, cx=cx, cy=cy)
+    img = scene.images[min(scene.images)]
+    kf = Keyframe(kf_id=0, camera=cam, quat=img.qvec, trans=img.tvec)
+    c = {k: torch.as_tensor(v, device=dev)
+         for k, v in kf.render_inputs().items()}
+    w, h = cam.width, cam.height
+    ka = mc.n_offsets - 2
+    base = RasterConfig(tile=16, compact=2**16, kmax=8, chunk=256, ksmall=4,
+                        nlarge=2**13)
+    cal0 = calibrate_eval_config(base, mc, ts.anchors, ts.decoders, [c], w, h)
+    cal = dataclasses.replace(cal0, kanchor=ka, kgroup=mc.n_offsets)
+    bg = torch.zeros(3, device=dev)
+    reset_launches()
+    with EvalBlendRoute() as cap:
+        image = EvalRenderer(mc, cal, w, h, bg, device=dev)(
+            ts.anchors, ts.decoders, c)
+        _sync(dev)
+    launches = read_launches()
+    with torch.no_grad():
+        ref = EvalRenderer(mc, cal0, w, h, bg, device=dev)(
+            ts.anchors, ts.decoders, c)
+        _, _, _, feats, aux = project_view(ts.anchors, ts.decoders, c, w, h,
+                                           mc, cal)
+        per_anchor = aux["alive"].reshape(-1, mc.n_offsets).sum(dim=1)
+        overflow = int((per_anchor > ka).sum())
+        visible = int((per_anchor > 0).sum())
+        tx, ty = cal.grid(w, h)
+        got = binning.bin_eval_direct(feats, aux, tx, ty, cal, True)
+        plain = binning.bin_eval_direct(feats, aux, tx, ty, cal0, True)
+    # the live instances' columns and the tile ranges (the slots past
+    # num_instances hold whichever dead rows the selection put last)
+    n_live = int(got[3])
+    same = (n_live == int(plain[3])
+            and torch.equal(got[0][:, :n_live], plain[0][:, :n_live])
+            and all(torch.equal(a, b) for a, b in zip(got[1:3], plain[1:3])))
+    diff = (image - ref).abs()
+    k3 = held_k3(cap.captured[0], "the kanchor eval render of the trained "
+                 "640x480 map", "kanchor")
+    print(f"[kanchor] train_colmap's trained map at its first view "
+          f"({w}x{h}), kanchor {ka} of {mc.n_offsets}: launches {launches}; "
+          f"{overflow} of {visible} anchors with an alive offset overflow "
+          f"kanchor; binned columns equal to those without kanchor: {same}; "
+          f"image against the render without kanchor: max {diff.max():.4g}, "
+          f"mean {diff.mean():.4g}; instances {int(got[3])} against "
+          f"{int(plain[3])}", flush=True)
+    if launches["blend_eval_packed"] != 1:
+        fail(f"the kanchor eval render launched {launches}")
+    if overflow == 0 and not same:
+        fail("no anchor overflows kanchor, yet the binned columns differ")
+    if not bool(torch.isfinite(image).all()) or float(diff.mean()) > 2e-2:
+        fail(f"the kanchor image is {float(diff.mean())} off on average")
+    return {"launches": launches, "k3": k3, "overflow": overflow}
+
+
+def random_lpips_weights(seed: int) -> dict:
+    """AlexNet-shaped LPIPS weights from a seed (full channel counts, tiny
+    magnitudes, nonnegative heads): no pretrained weights ship with the
+    repository."""
+    rng = np.random.default_rng(seed)
+    shapes = {"conv1_w": (64, 3, 11, 11), "conv1_b": (64,),
+              "conv2_w": (192, 64, 5, 5), "conv2_b": (192,),
+              "conv3_w": (384, 192, 3, 3), "conv3_b": (384,),
+              "conv4_w": (256, 384, 3, 3), "conv4_b": (256,),
+              "conv5_w": (256, 256, 3, 3), "conv5_b": (256,),
+              "lin0": (64,), "lin1": (192,), "lin2": (384,), "lin3": (256,),
+              "lin4": (256,)}
+    params = {k: rng.normal(0, 0.05, s).astype(np.float32)
+              for k, s in shapes.items()}
+    for i in range(5):
+        params[f"lin{i}"] = np.abs(params[f"lin{i}"])
+    params["shift"] = np.array([-0.030, -0.088, -0.188], np.float32)
+    params["scale"] = np.array([0.458, 0.448, 0.450], np.float32)
+    return params
+
+
+def lpips_path(dev) -> dict:
+    """11e: evaluate_run's lpips column over LPIPS_PAIRS of run A's
+    recorded 640x480 keyframe PNGs (phase 9), with SEGS_LPIPS_WEIGHTS naming
+    a random AlexNet-shaped pickle written under build/: on the card
+    against the CPU, rel 2e-4."""
+    import os
+    import pickle
+    import shutil
+
+    from segs_slam_tpu_torch.eval import harness
+
+    run = WORK / "lpips_run"
+    shutil.rmtree(run, ignore_errors=True)
+    src = WORK / "slam_a"
+    for sub in ("rendered", "ground_truth"):
+        (run / sub).mkdir(parents=True)
+        for p in sorted((src / sub).glob("*.png"))[:LPIPS_PAIRS]:
+            shutil.copy(p, run / sub / p.name)
+    weights = WORK / "lpips_random.pkl"
+    with open(weights, "wb") as f:
+        pickle.dump(random_lpips_weights(SEED + 12), f)
+    os.environ["SEGS_LPIPS_WEIGHTS"] = str(weights)
+    try:
+        out, secs = [], []
+        for d in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            out.append(harness.evaluate_run(run, device=d).get("lpips"))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        del os.environ["SEGS_LPIPS_WEIGHTS"]
+    card, cpu = out
+    rel = abs(card - cpu) / abs(cpu) if card and cpu else float("inf")
+    print(f"[lpips] evaluate_run over {LPIPS_PAIRS} of run A's 640x480 "
+          f"keyframe pairs, random AlexNet-shaped weights: card {card!r} "
+          f"({secs[0]:.2f} s), CPU {cpu!r} ({secs[1]:.2f} s), relative "
+          f"difference {rel:.3g}", flush=True)
+    if not rel <= 2e-4 or not card > 0:
+        fail(f"LPIPS on the card {card} against the CPU {cpu}")
+    return {"lpips": card, "rel": rel}
+
+
+def dp_inputs(dev) -> Path:
+    """The dp phase's inputs: train_synthetic's Trainer at its defaults
+    (256x256, capacity 2^14), the densify statistics' window opened at the
+    first step, its state and first keyframe, saved for the ranks."""
+    from segs_slam_tpu_torch.apps import train_synthetic
+
+    trainer, _ = train_synthetic.build_trainer(["--device", dev.type])
+    kf = trainer.scene.keyframes[min(trainer.scene.keyframes)]
+    cam, gt = trainer._kf_inputs(kf)
+    path = WORK / "dp_inputs.pt"
+    torch.save({"state": trainer.state, "cam": cam, "gt": gt,
+                "mc": trainer.model_config,
+                "oc": dataclasses.replace(trainer.opt_config, start_stat=0),
+                "rc": trainer.raster_config, "w": trainer.width,
+                "h": trainer.height, "device": dev.type}, path)
+    return path
+
+
+def dp_step(group, d: dict, dev):
+    """One (dp or single) step from the saved inputs: (state after it,
+    metrics, launches, ms of DP_TIMED further steps)."""
+    from segs_slam_tpu_torch.parallel.dp import make_dp_train_step
+    from segs_slam_tpu_torch.train.step import make_train_step
+
+    args = (d["mc"], d["oc"], d["rc"], d["w"], d["h"])
+    step = (make_dp_train_step(group, *args) if group is not None
+            else make_train_step(*args))
+    bg = torch.zeros(3, device=dev)
+    ts = d["state"]
+    reset_launches()
+    ts, m = step(ts, d["cam"], d["gt"], bg)
+    _sync(dev)
+    launches = read_launches()
+    after = copy_state(ts)
+    ms = []
+    for _ in range(DP_TIMED):
+        t0 = time.perf_counter()
+        ts, _ = step(ts, d["cam"], d["gt"], bg)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return after, {k: float(v) for k, v in m.items()}, launches, ms
+
+
+def copy_state(ts) -> dict:
+    """The state's map, decoder and statistics tensors, copied to the
+    host."""
+    out = {f"anchors.{k}": v.detach().cpu().clone()
+           for k, v in ts.anchors.params().items()}
+    out.update({f"decoders.{k}": v.detach().cpu().clone()
+                for k, v in ts.decoders.named_parameters()})
+    out.update({f"stats.{f.name}": getattr(ts.stats, f.name).cpu().clone()
+                for f in dataclasses.fields(ts.stats)})
+    return out
+
+
+def dp_rank_main(rank: int, work: Path):
+    """`chip_smoke.py --dp-rank R WORK`: one rank of the dp phase (gloo,
+    which all-reduces CUDA tensors; NCCL refuses two ranks on one card), on
+    the inputs dp_inputs saved under `work`."""
+    import torch.distributed as dist
+
+    f32_matmuls()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work / 'dp_rendezvous'}",
+        world_size=DP_RANKS, rank=rank)
+    try:
+        d = torch.load(work / "dp_inputs.pt", weights_only=False)
+        dev = torch.device(d["device"])
+        after, m, launches, ms = dp_step(dist.group.WORLD, d, dev)
+        torch.save({"state": after, "metrics": m, "launches": launches,
+                    "ms": ms}, work / f"dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_path(dev) -> dict:
+    """11f: DP_RANKS gloo ranks on the card, one make_dp_train_step each on
+    replicated inputs (train_synthetic's first keyframe at 256x256): the
+    update equals the single-process step's (rtol 1e-4, atol 1e-5), the
+    densify deltas are DP_RANKS times the single step's, the ranks' states
+    are equal; each rank's K1/K2 launches and the step's ms."""
+    for f in [WORK / "dp_rendezvous"] + [WORK / f"dp_rank{r}.pt"
+                                         for r in range(DP_RANKS)]:
+        f.unlink(missing_ok=True)
+    d = torch.load(dp_inputs(dev), map_location=dev, weights_only=False)
+    init = copy_state(d["state"])
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dp-rank", str(r), str(WORK)])
+             for r in range(DP_RANKS)]
+    codes = [p.wait(timeout=600) for p in procs]
+    if any(codes):
+        fail(f"the dp ranks exited {codes}")
+    ranks = [torch.load(WORK / f"dp_rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    single, m1, launches1, ms1 = dp_step(None, d, dev)
+    worst = {"params": 0.0, "stats": 0.0}
+    for k, ref in single.items():
+        got = ranks[0]["state"][k]
+        if not torch.equal(got, ranks[1]["state"][k]):
+            fail(f"the dp ranks' {k} differ")
+        if k.startswith("stats."):
+            ref = init[k] + DP_RANKS * (ref - init[k])
+        tol = 1e-5 + 1e-4 * ref.abs()
+        if not bool(((got - ref).abs() <= tol).all()):
+            fail(f"the dp update's {k} is off the single step's: max "
+                 f"{float((got - ref).abs().max())}")
+        kind = "stats" if k.startswith("stats.") else "params"
+        worst[kind] = max(worst[kind], float((got - ref).abs().max()))
+    grew = float((single["stats.offset_denom"]
+                  - init["stats.offset_denom"]).sum())
+    print(f"[dp] {DP_RANKS} gloo ranks on the card, train_synthetic's state "
+          f"at 256x256, replicated keyframe: launches a rank "
+          f"{[r['launches'] for r in ranks]} (single step {launches1}); "
+          f"loss {ranks[0]['metrics']['loss']:.6f} (single "
+          f"{m1['loss']:.6f}); worst |dp - single| params "
+          f"{worst['params']:.3g}, stats against {DP_RANKS} x the single "
+          f"delta {worst['stats']:.3g}; ranks equal; step ms (host clock to "
+          f"a synchronised device, {DP_TIMED} steps) dp median "
+          f"{np.median(ranks[0]['ms']):.3f} (rank 1 "
+          f"{np.median(ranks[1]['ms']):.3f}), single "
+          f"{np.median(ms1):.3f}", flush=True)
+    if not grew > 0:
+        fail("the dp step's densify statistics did not grow")
+    for r in ranks:
+        if r["launches"]["blend_fwd"] != 1 or r["launches"]["blend_bwd"] != 1:
+            fail(f"a dp rank launched {r['launches']}")
+    return {"launches": ranks[0]["launches"],
+            "ms": float(np.median(ranks[0]["ms"])),
+            "single_ms": float(np.median(ms1))}
+
+
+def phase_last(dev) -> dict:
+    """Phase 11: the viewer (checkpoint and live), SH, kanchor, LPIPS and
+    the dp step (see the module docstring)."""
+    return {"viewer": viewer_checkpoint(dev), "live": viewer_live(dev),
+            "sh": sh_path(dev), "kanchor": kanchor_path(dev),
+            "lpips": lpips_path(dev), "dp": dp_path(dev)}
+
+
+def phase_last_apart() -> dict:
+    """Phase 11 in a process of its own (`chip_smoke.py --last`), as phase
+    10, its result through WORK/last.json."""
+    out = WORK / "last.json"
+    out.unlink(missing_ok=True)
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--last"], timeout=600)
+    if res.returncode != 0 or not out.exists():
+        fail(f"phase 11 (chip_smoke.py --last) exited {res.returncode}")
+    return json.loads(out.read_text())
+
+
+def last_main():
+    """`chip_smoke.py --last`: phase 11 alone, its result in
+    WORK/last.json."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    f32_matmuls()
+    t0 = time.perf_counter()
+    res = phase_last(torch.device("cuda"))
+    print(f"[last] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    (WORK / "last.json").write_text(json.dumps(res))
+
+
 def print_ranking(launches, trained, at_640):
     """The kernels ranked by the device time the main path loses in them:
     launches in the train_synthetic run x (device ms - bound ms), on the
@@ -2021,6 +2715,7 @@ def main():
     slam = phase_slam(dev)
     print_slam_ranking(slam["launches"], slam["kernels"], kernels)
     apps = phase_apps_apart()
+    last = phase_last_apart()
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     # launches: this slice's main path, run A of slam_rgbd (phase 9), with
@@ -2033,10 +2728,18 @@ def main():
         kernels[name]["numbers_by_path"] = {
             path: apps[path]["kernels"][name]
             for path in ("train_colmap", "slam_stereo")}
+        kernels[name]["numbers_by_path"]["sh"] = last["sh"]["kernels"][name]
+    kernels["blend_eval_packed"]["numbers_by_path"] = {
+        "viewer_480": last["viewer"]["k3"], "kanchor": last["kanchor"]["k3"]}
     by_path = {"slam_rgbd": slam["launches"], "slam_rgbd_b":
                slam["launches_b"], "train_synthetic": launches,
                "train_colmap": apps["train_colmap"]["launches"],
-               "slam_stereo": apps["slam_stereo"]["launches"]}
+               "slam_stereo": apps["slam_stereo"]["launches"],
+               "viewer_checkpoint": last["viewer"]["launches"],
+               "slam_rgbd_live_viewer": last["live"]["launches"],
+               "sh": last["sh"]["launches"],
+               "kanchor": last["kanchor"]["launches"],
+               "dp_rank": last["dp"]["launches"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": slam["launches"][name], **kernels[name],
@@ -2048,4 +2751,11 @@ def main():
 
 
 if __name__ == "__main__":
-    apps_main() if sys.argv[1:] == ["--apps"] else main()
+    if sys.argv[1:] == ["--apps"]:
+        apps_main()
+    elif sys.argv[1:] == ["--last"]:
+        last_main()
+    elif sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
+    else:
+        main()

@@ -4,9 +4,9 @@ Port of segs_slam_tpu/apps/common.py: the flags and the reference-YAML
 ingest path, so that the SLAM apps consume the reference's own
 cfg/gaussian_mapper/<Sensor>/<Dataset>/*.yaml operating points (reference
 ingest: readConfigFromFile, src/gaussian_mapper.cpp:224-521), with the
-dual-rate rasterizer and undistortion plumbing. Two flags are refused until
-their parts are ported: --viewer-port (the live viewer) and a non-zero
---kanchor (the eval path's per-anchor pre-compaction).
+dual-rate rasterizer and undistortion plumbing, --kanchor (the eval path's
+per-anchor pre-compaction) and the live viewer (--viewer-port,
+`maybe_start_live_viewer`).
 """
 
 from __future__ import annotations
@@ -59,26 +59,28 @@ def add_common_args(p, default_compact=2**16, default_kmax=8):
                    help="ModelConfig field override, e.g. "
                         "--model-set appearance_dim=0 (ablations)")
     p.add_argument("--kanchor", type=int, default=0,
-                   help="per-anchor K-axis pre-compaction on the eval "
-                        "render path; not ported: only 0 is accepted")
+                   help="per-anchor K-axis pre-compaction on the EVAL "
+                        "render path (see RasterConfig.kanchor); 0 = off")
     p.add_argument("--opt-set", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="override an OptimizationConfig field (repeatable), "
                         "e.g. --opt-set pose_prior=0.005; applied after the "
                         "YAML ingest")
     p.add_argument("--viewer-port", type=int, default=0,
-                   help="the live web viewer's port (0 = off); the viewer "
-                        "is not ported yet, so only 0 is accepted")
+                   help="serve the LIVE free-view web viewer from the "
+                        "running mapper on this port (0 = off): the "
+                        "renderFromPose equivalent, reference: "
+                        "src/gaussian_mapper.cpp:2484-2538")
 
 
-def check_unported(args) -> None:
-    """Refuse the flags whose parts the port does not have yet."""
+def maybe_start_live_viewer(args, trainer):
+    """Start the live web viewer's thread when --viewer-port is set; the
+    thread (apps/viewer.py:serve_live), or None."""
     if getattr(args, "viewer_port", 0):
-        raise SystemExit("--viewer-port: the live viewer is not ported yet "
-                         "(segs_slam_tpu/apps/viewer.py)")
-    if getattr(args, "kanchor", 0):
-        raise SystemExit("--kanchor: the kanchor pre-compaction is not "
-                         "ported")
+        from segs_slam_tpu_torch.apps.viewer import serve_live
+
+        return serve_live(trainer, port=args.viewer_port)
+    return None
 
 
 def resolve_dist_coeffs(args, dataset: str):
@@ -110,7 +112,6 @@ def resolve_configs(args, iters_budget: int, mapper_overrides: dict | None
     keys; explicit CLI values override iters/capacity; mapper_overrides
     (e.g. pose_refine_every from app flags) override the YAML mapper keys.
     """
-    check_unported(args)
     trainer_kwargs: dict = {}
     if args.mapper_yaml:
         from segs_slam_tpu_torch.io.config_yaml import load_mapper_yaml
@@ -148,8 +149,10 @@ def resolve_configs(args, iters_budget: int, mapper_overrides: dict | None
     packed = (args.packed_train == "on"
               or (args.packed_train == "auto" and args.kmax <= 31
                   and args.compact <= 2**16))
+    kanchor = getattr(args, "kanchor", 0)
     rc = RasterConfig(tile=16, compact=args.compact, kmax=args.kmax,
                       chunk=256, ksmall=args.ksmall,
                       nlarge=args.nlarge if args.ksmall else 0,
-                      packed_train=packed)
+                      packed_train=packed, kanchor=kanchor,
+                      kgroup=mc.n_offsets if kanchor else 0)
     return mc, oc, mpc, rc, trainer_kwargs

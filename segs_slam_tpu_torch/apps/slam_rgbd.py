@@ -18,8 +18,9 @@ With --tracker native (the default) frames load through the native
 library's threaded loader (native/bindings.py, built on first use) and an
 <path>/imu.txt, where present, feeds the tracker's preintegration; with
 --tracker oracle they load through PIL (and core/undistort.py where the
-dataset carries distortion). Refused until their parts are ported:
---viewer-port and --kanchor (apps/common.py).
+dataset carries distortion). --viewer-port serves the live viewer
+(apps/viewer.py) while the mapper runs; the result's "viewer" is its
+thread.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from segs_slam_tpu_torch.apps.common import (
     add_common_args,
+    maybe_start_live_viewer,
     resolve_configs,
     resolve_dist_coeffs,
 )
@@ -393,6 +395,7 @@ def main(argv=None) -> dict:
     trainer.scene.add_camera(cam)
     queue = MappingQueue()
     mapper = Mapper(queue, trainer, cam, mpc)
+    viewer = maybe_start_live_viewer(args, trainer)
     out = Path(args.out)
     mapper.debug_ckpt_at = args.debug_ckpt_at
     mapper.debug_ckpt_path = out / "debug_ckpt.pt"
@@ -458,7 +461,7 @@ def main(argv=None) -> dict:
           f"{mapping_s:.1f}s")
     return dict(agg, iterations=trainer.iteration, mapping_s=mapping_s,
                 ms_per_iter=1000.0 * mapping_s / max(trainer.iteration, 1),
-                folded=nfold, trainer=trainer)
+                folded=nfold, trainer=trainer, viewer=viewer)
 
 
 if __name__ == "__main__":

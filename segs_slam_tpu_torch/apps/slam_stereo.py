@@ -25,7 +25,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from segs_slam_tpu_torch.apps.common import add_common_args, resolve_configs
+from segs_slam_tpu_torch.apps.common import (
+    add_common_args,
+    maybe_start_live_viewer,
+    resolve_configs,
+)
 from segs_slam_tpu_torch.core import se3
 from segs_slam_tpu_torch.core.camera import Camera
 from segs_slam_tpu_torch.core.undistort import StereoRectifyMap
@@ -253,6 +257,7 @@ def main(argv=None) -> dict:
     trainer.scene.add_camera(cam)
     queue = MappingQueue()
     mapper = Mapper(queue, trainer, cam, mpc)
+    viewer = maybe_start_live_viewer(args, trainer)
 
     tracking_times: list[float] = []
     stop_event = threading.Event()
@@ -300,7 +305,7 @@ def main(argv=None) -> dict:
           f"runtime {runtime:.0f}s, {trainer.iteration} iters")
     return dict(agg, iterations=trainer.iteration, mapping_s=mapping_s,
                 ms_per_iter=1000.0 * mapping_s / max(trainer.iteration, 1),
-                trainer=trainer)
+                trainer=trainer, viewer=viewer)
 
 
 if __name__ == "__main__":

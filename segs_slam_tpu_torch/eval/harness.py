@@ -4,7 +4,8 @@ A copy of segs_slam_tpu/eval/harness.py over the port's metrics: walks
 result directories (the recorder's layout, which matches the reference's),
 computes ATE from trajectory files and tracking / render FPS, and aggregates
 everything into log.txt / log.csv (reference: eval/onekey.py:19-120,
-eval/run.py:84-246). LPIPS is not ported yet (eval/metrics.py:lpips_fn).
+eval/run.py:84-246), with LPIPS where SEGS_LPIPS_WEIGHTS names its weights
+(eval/metrics.py:lpips_fn).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ def _read_floats(path: Path) -> np.ndarray:
     )
 
 
-def evaluate_run(run_dir: str | Path, mono: bool = False) -> dict:
+def evaluate_run(run_dir: str | Path, mono: bool = False,
+                 device="cuda") -> dict:
+    """The run directory's metrics; LPIPS runs on `device`."""
     run_dir = Path(run_dir)
     out: dict = {"run": str(run_dir)}
 
@@ -44,13 +47,28 @@ def evaluate_run(run_dir: str | Path, mono: bool = False) -> dict:
         if len(vals):
             out[key] = float(vals.mean())
 
-    # LPIPS over rendered vs ground_truth dirs (reference: run.py:112-141):
-    # lpips_fn raises where it is asked for, so here it is always skipped,
-    # and the column is absent, not silently zero
-    if M.lpips_fn() is None:
-        print(f"[eval] {run_dir}: LPIPS skipped (not ported; "
-              "SEGS_LPIPS_WEIGHTS is unset)", flush=True)
+    # LPIPS over rendered vs ground_truth dirs (reference: run.py:112-141)
+    lpips = M.lpips_fn(device)
+    rdir, gdir = run_dir / "rendered", run_dir / "ground_truth"
+    if lpips is None:
+        # said aloud: the column is absent, not silently zero
+        print(f"[eval] {run_dir}: LPIPS skipped: no pretrained weights "
+              "(set SEGS_LPIPS_WEIGHTS to an AlexNet-LPIPS pickle to "
+              "enable)", flush=True)
         out["lpips_skipped"] = 1.0
+    if lpips is not None and rdir.is_dir() and gdir.is_dir():
+        import torch
+        from PIL import Image
+
+        def load(p):
+            a = np.asarray(Image.open(p), np.float32).transpose(2, 0, 1)
+            return torch.from_numpy(a / 255).to(device)
+
+        vals = [float(lpips(load(rp), load(gdir / rp.name)))
+                for rp in sorted(rdir.glob("*.png"))
+                if (gdir / rp.name).exists()]
+        if vals:
+            out["lpips"] = float(np.mean(vals))
 
     # ATE: estimated vs ground-truth trajectories in TUM format
     est_p = run_dir / "CameraTrajectory_TUM.txt"
@@ -65,14 +83,14 @@ def evaluate_run(run_dir: str | Path, mono: bool = False) -> dict:
 
 
 def aggregate(results_root: str | Path, mono: bool = False,
-              log_name: str = "log") -> list[dict]:
+              log_name: str = "log", device="cuda") -> list[dict]:
     """onekey: evaluate every run directory under results_root and write
     log.txt + log.csv (reference: eval/onekey.py:96-120)."""
     results_root = Path(results_root)
     runs = sorted(
         d for d in results_root.iterdir() if (d / "psnr.txt").exists()
     ) if results_root.is_dir() else []
-    rows = [evaluate_run(d, mono=mono) for d in runs]
+    rows = [evaluate_run(d, mono=mono, device=device) for d in runs]
     if not rows:
         return rows
 

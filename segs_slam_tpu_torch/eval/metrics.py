@@ -5,9 +5,9 @@ nothing of the JAX package): Umeyama alignment, ATE, rotation APE,
 `fps_from_times` and TUM trajectory I/O, replacing the reference's evo-based
 computation (reference: eval/run.py:150-231).
 
-LPIPS (eval/run.py:112-141) is not ported yet: `lpips_fn` returns None when
-SEGS_LPIPS_WEIGHTS is unset, as the JAX module does without weights, and
-raises when it is set.
+`lpips_fn` builds LPIPS (eval/run.py:112-141; eval/lpips.py) from the
+weights pickle SEGS_LPIPS_WEIGHTS names, and returns None without one, as
+the JAX module does.
 """
 
 from __future__ import annotations
@@ -120,12 +120,18 @@ def save_tum_trajectory(path: str | Path, times, positions, quats_wxyz) -> None:
             )
 
 
-def lpips_fn():
-    """None without SEGS_LPIPS_WEIGHTS (the harness then records that LPIPS
-    was skipped). With it set this raises: the port has no LPIPS network
-    yet, and a run that asks for LPIPS must not quietly go without it."""
-    if not os.environ.get("SEGS_LPIPS_WEIGHTS", ""):
+def lpips_fn(device="cuda"):
+    """An lpips(img1, img2) callable on `device` (eval/lpips.py) with the
+    weights of the pickle SEGS_LPIPS_WEIGHTS names, or None when the
+    variable is unset or the file is missing."""
+    weights = os.environ.get("SEGS_LPIPS_WEIGHTS", "")
+    if not weights or not Path(weights).exists():
         return None
-    raise NotImplementedError(
-        "LPIPS is not ported yet; unset SEGS_LPIPS_WEIGHTS to evaluate "
-        "without it")
+    import pickle
+
+    from segs_slam_tpu_torch.eval.lpips import make_lpips
+    from segs_slam_tpu_torch.io.convert import lpips_params_to_torch
+
+    with open(weights, "rb") as f:
+        params = pickle.load(f)
+    return make_lpips(lpips_params_to_torch(params, device))

@@ -9,7 +9,8 @@ nn.Linear stores (out, in), so `w` is transposed on the way in.
 A whole train state (map, decoders, pose rows, Adam moments, densify
 statistics, step) converts both ways with train_state_from_jax /
 train_state_to_numpy, so that the JAX package and the port can start from
-one state and be compared leaf by leaf.
+one state and be compared leaf by leaf. LPIPS weights (the numpy pickle
+both packages read) become tensors with lpips_params_to_torch.
 """
 
 from __future__ import annotations
@@ -209,3 +210,11 @@ def train_state_to_numpy(ts: TrainState) -> dict:
         "pose": np_(ts.pose),
         "pose_ema": np_(ts.pose_ema),
     }
+
+
+def lpips_params_to_torch(params: Mapping, device=None) -> dict:
+    """The LPIPS weights pickle's numpy arrays (eval/lpips.py's names and
+    layouts, which are torch's: conv weights (out, in, kh, kw)) as f32
+    tensors on `device`."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}

@@ -4,8 +4,9 @@ Port of segs_slam_tpu/models/renderer.py (reference:
 src/gaussian_renderer.cpp:19-199 GaussianRenderer::render +
 prefilter_voxel): `render` (the differentiable training render, blend
 kernels K1/K2), `EvalRenderer` (the no-gradient eval render over the packed
-binning, kernel K3) and `calibrate_eval_config`. Not ported:
-ChainedEvalRenderer (superseded in the JAX package) and project_to_image.
+binning, kernel K3), `calibrate_eval_config`, `ChainedEvalRenderer` (the
+eval render as three separable stages) and `project_to_image` (the debug
+2-D projection).
 """
 
 from __future__ import annotations
@@ -216,3 +217,70 @@ def calibrate_eval_config(raster_config: RasterConfig,
     nmid = min(rc.compact, max(rc.nmid, pow2(int(n_mid * headroom))))
     nlarge = min(nmid, max(rc.nlarge, pow2(int(n_large * headroom))))
     return dataclasses.replace(rc, nmid=nmid, nlarge=nlarge)
+
+
+class ChainedEvalRenderer(EvalRenderer):
+    """EvalRenderer's render as three stages: decode (prefilter + the
+    neural-gaussian MLPs) -> project (cov3d + preprocess + the blend's
+    feature rows) -> blend (the packed eval binning and K3, or, where the
+    packed layouts do not fit or with packed=False, the f32 binning and
+    K1: EvalRenderer's gate, the JAX class's renderer.py:329-332). Not
+    differentiable; EvalRenderer's constructor.
+
+    The JAX class compiles each stage as its own jit, and its `jits()`
+    exposes them for the jit caches' introspection; eager PyTorch has no
+    jit cache, so there is no `jits()`. The stages are separable for tests
+    and for profiling each stage on a real map.
+    """
+
+    def decode(self, anchors: AnchorState, decoders: Decoders,
+               cam: dict) -> NeuralGaussians:
+        with torch.no_grad():
+            return neural_gaussians_for_view(
+                anchors, decoders, cam, self.width, self.height,
+                self.model_config, self.raster_config)[1]
+
+    def project(self, neural: NeuralGaussians, cam: dict):
+        """(feats [NPAY, N], aux): the blends' inputs."""
+        with torch.no_grad():
+            _, feats, aux = project(
+                neural.xyz, neural.scaling, neural.rotation, neural.opacity,
+                neural.color, cam["world_view_transform"],
+                cam["full_proj_transform"], self.width, self.height,
+                cam["tan_fovx"], cam["tan_fovy"], config=self.raster_config,
+                valid=neural.valid)
+        return feats, aux
+
+    def blend(self, feats: torch.Tensor, aux: dict) -> torch.Tensor:
+        """The image (3, H, W)."""
+        rc = self.raster_config
+        tx, ty = rc.grid(self.width, self.height)
+        blend = binned_blend_eval if self.packed else binned_blend
+        with torch.no_grad():
+            color, *_ = blend(feats, aux, self.bg, rc, tx, ty)
+        return tiles_to_image(color, tx, ty, rc.tile, self.width,
+                              self.height)
+
+    def __call__(self, anchors: AnchorState, decoders: Decoders,
+                 cam: dict) -> torch.Tensor:
+        return self.blend(*self.project(self.decode(anchors, decoders, cam),
+                                        cam))
+
+
+def project_to_image(state: AnchorState, decoders: Decoders, cam: dict,
+                     width: int, height: int, model_config: ModelConfig,
+                     raster_config: RasterConfig) -> dict:
+    """Debug 2-D projection: per neural gaussian its mean2d, radius, colour
+    and validity (reference: GaussianRenderer::gaussians_project2_image /
+    RasterizeGaussiansprojectCUDA, src/gaussian_renderer.cpp:336-423,
+    rasterizer_impl.cu:571-585, the mapper's debug ellipse overlays): the
+    preprocess outputs, left on the device."""
+    with torch.no_grad():
+        _, neural, proj, _, _ = project_view(
+            state, decoders, cam, width, height, model_config, raster_config)
+    return {
+        "points2d": proj.mean2d,
+        "radii": proj.radius,
+        "color": neural.color,
+        "valid": neural.valid & (proj.radius > 0),
+    }

@@ -27,8 +27,12 @@ class RasterConfig:
     3-tier (kmid/nmid), sel_direct and pack8 fields drive the packed eval
     binning (binning.py, blend.py:binned_blend_eval; `eval_variant` turns
     them on); packed_train lets the training blend bin through the packed
-    sorts where they fit (blend.py:uses_packed_train). kanchor is not
-    implemented: the eval binning rejects it.
+    sorts where they fit (blend.py:uses_packed_train). kanchor / kgroup
+    (eval path only; 0 = off): with kgroup = the model's n_offsets and
+    kanchor < kgroup, each anchor's kgroup gaussians are priority-sorted
+    along the K axis and only the kanchor first survive into the packed
+    eval binning's global sort (binning.py:_kanchor_rows); lossless
+    whenever no anchor has more than kanchor alive offsets.
     """
 
     tile: int = 16

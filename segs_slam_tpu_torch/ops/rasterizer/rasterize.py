@@ -8,10 +8,8 @@ Port of segs_slam_tpu/ops/rasterizer/rasterize.py:
          autograd.Function (blend.py)                forward.cu:339-452,
                                                      backward.cu:399-557
 
-Gradients reach means3d, scales, rotations, opacities, colours and
-mean2d_offset through autograd and that one Function. The SH colour mode of
-the JAX version is not ported yet: colours are precomputed, as on the
-reference's live path.
+Gradients reach means3d, scales, rotations, opacities, colours (or SH
+coefficients) and mean2d_offset through autograd and that one Function.
 """
 
 from __future__ import annotations
@@ -128,10 +126,23 @@ def rasterize(
     valid: torch.Tensor | None = None,  # (N,) bool mask for padded buffers
     mean2d_offset: torch.Tensor | None = None,  # (N, 2)
     scale_modifier: float = 1.0,
+    shs: torch.Tensor | None = None,  # (N, K, 3) SH coeffs; overrides colors
+    sh_degree: int = 3,
+    campos: torch.Tensor | None = None,  # (3,); derived when None
 ) -> dict:
     """Returns dict with image (3, H, W), radii (N,), final_T, n_contrib,
     depth_map, num_instances, num_compact, num_kmax_truncated, num_large,
-    depth; the same keys and layouts as the JAX version."""
+    depth; the same keys and layouts as the JAX version. With `shs`, the
+    colours are sh_to_color's at the camera position (reference:
+    computeColorFromSH, forward.cu:20-71; unused by the reference's live
+    renderer but part of its kernels' surface)."""
+    if shs is not None:
+        from segs_slam_tpu_torch.ops.sh import sh_to_color
+
+        if campos is None:
+            # the camera centre: the last row of inv(W2C^T) = (-R^T t, 1)
+            campos = torch.linalg.inv(world_view_transform)[3, :3]
+        colors = sh_to_color(sh_degree, shs, means3d, campos)
     proj, feats, aux = project(
         means3d, scales, rotations, opacities, colors, world_view_transform,
         full_proj_transform, width, height, tan_fovx, tan_fovy, config,

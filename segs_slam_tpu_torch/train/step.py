@@ -12,6 +12,13 @@ deltas (pose rows); a step given a keyframe's row renders at its pose
 composed with exp(delta) (`apply_pose_delta`) and trains that row with the
 map, under its own optimiser family (OptimizationConfig.pose_opt_mode),
 prior and start gate.
+
+Data parallel (parallel/dp.py): with a `group`, the step is one rank's
+share of a step over several keyframes, one a rank, with the state
+replicated; the reductions sit where the JAX version's `axis_name`
+collectives sit and do the same: gradients averaged, the non-finite count,
+the densify statistics and the pose-row mask summed, the loss metrics
+averaged and the capacity counters maxed.
 """
 
 from __future__ import annotations
@@ -199,11 +206,29 @@ def step_loss(out, gt_image: torch.Tensor, gt_depth, it: int,
     return loss, l1, ssim_v, img_m, gt_m
 
 
+def _all_reduce(tensors: list, op: str, group) -> list:
+    """`tensors` reduced across `group` in one collective (op "sum", "mean"
+    or "max"), as new tensors of their shapes and dtypes."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    if op == "mean":
+        flat = flat / dist.get_world_size(group)
+    return [x.view_as(t) for x, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
-                    raster_config: RasterConfig, width: int, height: int):
+                    raster_config: RasterConfig, width: int, height: int,
+                    group=None):
     """The train step for one image size: step_fn(ts, cam, gt_image, bg,
     kf_row=None, gt_depth=None) -> (ts, metrics), ts updated in place and
-    metrics left on the device."""
+    metrics left on the device. With a torch.distributed `group` (the JAX
+    version's `axis_name`), the step is this rank's body of a data-parallel
+    step: every rank of the group must call it with the same state and the
+    same `kf_row` presence (see the module docstring)."""
     cap, k = model_config.capacity, model_config.n_offsets
     oc = opt_config
     schedules = oc.lr_schedules()
@@ -262,6 +287,12 @@ def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
         # them and count them.
         nonfinite = sum((~torch.isfinite(g)).sum() for g in grads)
         grads = [_sanitise(g) for g in grads]
+        if group is not None:
+            # sanitised on each rank first, so that one rank's NaN cannot
+            # poison the reduction; mean2d_grad stays this rank's: the
+            # densify statistics below are summed per keyframe
+            grads = _all_reduce(grads[:-1], "mean", group) + grads[-1:]
+            (nonfinite,) = _all_reduce([nonfinite], "sum", group)
         mean2d_grad = grads[-1]
         na = len(anchor_leaves)
         grad_tree = {"anchors": dict(zip(anchor_leaves, grads[:na])),
@@ -277,9 +308,6 @@ def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
                 visible = out.visible_anchor_mask
                 vis_f = visible.float()
                 neural_op = out.neural.neural_opacity.reshape(cap, k)
-                st.opacity_accum += vis_f * torch.clamp(
-                    neural_op, min=0.0).sum(dim=1)
-                st.anchor_demon += vis_f
                 combined = (torch.repeat_interleave(visible, k)
                             & out.neural.offset_mask
                             & out.visibility_filter).reshape(cap, k).float()
@@ -289,8 +317,16 @@ def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
                                       device=dev)
                 g2 = mean2d_grad * gscale
                 gnorm = torch.sqrt((g2 * g2).sum(dim=-1)).reshape(cap, k)
-                st.offset_grad_accum += combined * gnorm
-                st.offset_denom += combined
+                deltas = [vis_f * torch.clamp(neural_op, min=0.0).sum(dim=1),
+                          vis_f, combined * gnorm, combined]
+                if group is not None:
+                    # one step over B keyframes gathers what B iterations
+                    # of the reference would (training_statis)
+                    deltas = _all_reduce(deltas, "sum", group)
+                st.opacity_accum += deltas[0]
+                st.anchor_demon += deltas[1]
+                st.offset_grad_accum += deltas[2]
+                st.offset_denom += deltas[3]
 
             active = ts.anchors.active
             # pose rows: only the rendered keyframe's row may move (zero
@@ -301,6 +337,11 @@ def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
             if opt_pose and oc.pose_opt_start > 0 \
                     and it < oc.pose_opt_start:
                 pose_mask = torch.zeros_like(pose_mask)
+            if opt_pose and group is not None:
+                # every rank's row moves: the gradients were averaged, so
+                # every rank applies the same update
+                (pose_mask,) = _all_reduce([pose_mask.float()], "sum", group)
+                pose_mask = pose_mask > 0
             masks = {"anchors": active, "pose": pose_mask}
             with record_function("train_step.adam"):
                 optimizer.update(
@@ -329,6 +370,12 @@ def make_train_step(model_config: ModelConfig, opt_config: OptimizationConfig,
                 "num_compact": out.num_compact,
                 "num_kmax_truncated": out.num_kmax_truncated,
             }
+            if group is not None:
+                means = ("loss", "l1", "psnr", "ssim")
+                maxes = ("num_instances", "num_compact", "num_kmax_truncated")
+                for keys, op in ((means, "mean"), (maxes, "max")):
+                    metrics.update(zip(keys, _all_reduce(
+                        [metrics[key] for key in keys], op, group)))
         return ts, metrics
 
     return step_fn

@@ -16,11 +16,19 @@ Evaluation (`evaluate`, `render_keyframe`, `render_and_measure_keyframe`)
 renders through `EvalRenderer`: the packed eval binning and kernel K3, with
 the tier sizes calibrated on the map's own footprints, at each keyframe's
 pose composed with its learned delta.
+
+The state is updated in place (Adam, the densify adjust's row
+permutations), so `lock` guards it: the Trainer holds it across each train
+iteration's step and adjust and across the map edits of the mapper's
+operations, and a reader on another thread (the live viewer,
+apps/viewer.py:serve_live) renders under it, as the reference renders
+under the mapper's render mutex (src/gaussian_mapper.cpp:2484-2538).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -104,6 +112,7 @@ class Trainer:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        self.lock = threading.Lock()  # see the module docstring
         self.scene = Scene(seed=self.seed)
         self._bg = torch.full((3,), 1.0 if self.white_background else 0.0,
                               device=self.device)
@@ -185,9 +194,10 @@ class Trainer:
         return n
 
     def insert_points(self, points: np.ndarray) -> int:
-        anchors, n = insert_points(self.state.anchors, points,
-                                   self.model_config)
-        self.state.anchors = anchors
+        with self.lock:
+            anchors, n = insert_points(self.state.anchors, points,
+                                       self.model_config)
+            self.state.anchors = anchors
         return n
 
     def apply_similarity(self, transform: np.ndarray | None,
@@ -218,11 +228,12 @@ class Trainer:
         new_offset = off_world / torch.clamp(e3[:, None, :] * scale,
                                              min=1e-12)
         q_r = se3.rotmat_to_quat(R)
-        self.state.anchors = dataclasses.replace(
-            a, anchor=(a.anchor * scale) @ R.T + t,
-            scaling=a.scaling + float(np.log(scale)), offset=new_offset,
-            rotation=se3.normalize_quat(se3.quat_mul(q_r[None, :],
-                                                     a.rotation)))
+        with self.lock:
+            self.state.anchors = dataclasses.replace(
+                a, anchor=(a.anchor * scale) @ R.T + t,
+                scaling=a.scaling + float(np.log(scale)), offset=new_offset,
+                rotation=se3.normalize_quat(se3.quat_mul(q_r[None, :],
+                                                         a.rotation)))
 
     # --- training ---
     def _kf_inputs(self, kf: Keyframe, level: int | None = None):
@@ -429,14 +440,15 @@ class Trainer:
         # the depth term at full resolution only
         gt_depth = (self._depth_of(kf) if self.opt_config.lambda_depth > 0.0
                     and (w, h) == (self.width, self.height) else None)
-        self.state, metrics = self._step_for(w, h)(
-            self.state, cam, gt, self._bg, kf_row=row, gt_depth=gt_depth)
-
+        step = self._step_for(w, h)
         oc = self.opt_config
         it = self.iteration
-        if oc.update_from < it < oc.update_until \
-                and it % oc.update_interval == 0:
-            self.state = self._adjust(self.state, self._generator)
+        with self.lock:
+            self.state, metrics = step(self.state, cam, gt, self._bg,
+                                       kf_row=row, gt_depth=gt_depth)
+            if oc.update_from < it < oc.update_until \
+                    and it % oc.update_interval == 0:
+                self.state = self._adjust(self.state, self._generator)
         return metrics
 
     def train(self, iterations: int, log_every: int = 0, log_fn=print,

@@ -16,6 +16,7 @@ from segs_slam_tpu.ops.rasterizer.blend import binned_blend as j_binned_blend
 from segs_slam_tpu.ops.rasterizer.reference import render_reference
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig, rasterize
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _scene(name):

@@ -27,6 +27,7 @@ from segs_slam_tpu_torch.ops.rasterizer import RasterConfig, rasterize
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
 from segs_slam_tpu_torch.ops.rasterizer.dense import rasterize_dense
 from test_torch_blend import stress_tiles
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _scene(name):

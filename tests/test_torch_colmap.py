@@ -33,6 +33,7 @@ from segs_slam_tpu_torch.train.trainer import Trainer
 from segs_slam_tpu_torch.utils import make_colmap_dataset as maker
 from test_io import _write_colmap_fixture
 from test_torch_trainer import _tree
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 64, 48
 MAKER_ARGS = ["--views", "4", "--width", str(W), "--height", str(H),

@@ -16,6 +16,7 @@ from segs_slam_tpu.ops.rasterizer import binning as jbin
 from segs_slam_tpu.ops.rasterizer import preprocess as jpre
 from segs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from segs_slam_tpu_torch.ops.rasterizer import preprocess as tpre
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 96, 64
 
@@ -272,9 +273,10 @@ def test_eval_variant_matches_jax():
 def test_packed_binning_guards():
     feats, aux = _blend_inputs(n=40, big=4)
     _, (tf, ta) = _both(feats, aux)
+    # kanchor is ported (test_torch_kanchor.py); a kanchor of a whole
+    # group or more is still refused
     with pytest.raises(ValueError, match="kanchor"):
-        tbin.compact_gaussians_packed(tf, ta, tpre.RasterConfig(
-            compact=64, kmax=8, kanchor=2, kgroup=4))
+        tpre.RasterConfig(compact=64, kmax=8, kanchor=4, kgroup=4)
     with pytest.raises(ValueError, match="kmax"):
         tbin.compact_gaussians_packed(tf, ta, tpre.RasterConfig(
             compact=64, kmax=32))

@@ -49,6 +49,7 @@ from segs_slam_tpu_torch.slam.protocol import (
 )
 from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.trainer import Trainer
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W = H = 32
 MODEL = dict(feat_dim=8, n_offsets=4, appearance_dim=8, embedding_dim=4,

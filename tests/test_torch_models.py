@@ -31,6 +31,7 @@ from segs_slam_tpu_torch.models.neural_gaussians import (
     generate_neural_gaussians,
 )
 from segs_slam_tpu_torch.ops.knn import mean_knn_sq_dist
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 SMALL = dict(capacity=64, feat_dim=8, n_offsets=4, appearance_dim=8,
              embedding_dim=5)

@@ -24,6 +24,7 @@ from test_torch_producers import (
     _run_both,
     assert_streams_equal,
 )
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from segs_slam_tpu_torch import native
 from segs_slam_tpu_torch.core.camera import Camera
 from segs_slam_tpu_torch.native import bindings
 from segs_slam_tpu_torch.utils import make_rgbd_dataset
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -10,6 +10,7 @@ from test_torch_native import (  # noqa: F401 (fixtures)
     port_tracker,
     serial_opencv,
 )
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.usefixtures("port_tracker", "serial_opencv")
 

@@ -16,6 +16,7 @@ from segs_slam_tpu.ops.rasterizer.blend import binned_blend as j_binned_blend
 from segs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from segs_slam_tpu_torch.ops.rasterizer import blend as tblend
 from test_torch_eval_binning import W, H, _blend_inputs, _both, _configs, _eq
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 ROWS = ["mean2d.x", "mean2d.y", "conic.a", "conic.b", "conic.c", "opacity",
         "r", "g", "b"]

@@ -42,6 +42,7 @@ from segs_slam_tpu_torch.train.step import apply_pose_delta, make_train_step
 from segs_slam_tpu_torch.train.trainer import Trainer
 from test_torch_trainer import OPT, RASTER, SMALL, W, H, _flat, _keyframes
 from test_torch_trainer import _tree
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 PTS = np.random.default_rng(1).uniform([-0.8, -0.6, 1.5], [0.8, 0.6, 4.0],
                                        (40, 3))

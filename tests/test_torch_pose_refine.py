@@ -24,6 +24,7 @@ from segs_slam_tpu_torch.utils.synthetic import (
 )
 from test_torch_pose import _pose_trainers
 from test_torch_trainer import H, W, _tree
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _perturb(kf, ang_deg=1.0, dt=(0.02, -0.015, 0.01)):

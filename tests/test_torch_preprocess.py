@@ -13,6 +13,7 @@ from segs_slam_tpu.ops.rasterizer import preprocess as jpre
 from segs_slam_tpu.ops.rasterizer import visible_filter as j_visible_filter
 from segs_slam_tpu_torch.ops.rasterizer import preprocess as tpre
 from segs_slam_tpu_torch.ops.rasterizer import visible_filter
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 48, 32
 

@@ -32,6 +32,7 @@ from segs_slam_tpu_torch.slam import protocol
 from segs_slam_tpu_torch.slam.protocol import OperationKind
 from segs_slam_tpu_torch.utils import make_rgbd_dataset
 from test_torch_native import serial_opencv  # noqa: F401 (fixture)
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 # a closed orbit at 320x240: the tracker keeps about 40 keyframes and closes

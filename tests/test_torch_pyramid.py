@@ -24,6 +24,7 @@ from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.trainer import Trainer
 from test_torch_pose import PTS
 from test_torch_trainer import OPT, RASTER, SMALL, _tree
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 
 PW, PH = 64, 48

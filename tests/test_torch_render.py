@@ -28,6 +28,7 @@ from segs_slam_tpu_torch.io.png import write_png
 from segs_slam_tpu_torch.models.config import ModelConfig
 from segs_slam_tpu_torch.models.renderer import render
 from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 48, 32
 SMALL = dict(capacity=64, feat_dim=8, n_offsets=4, appearance_dim=8)

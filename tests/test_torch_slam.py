@@ -45,6 +45,7 @@ from segs_slam_tpu_torch.slam import frontends, producers, protocol
 from segs_slam_tpu_torch.utils import make_imu
 from segs_slam_tpu_torch.utils import make_rgbd_dataset as maker
 from test_app_config import REF  # the reference's cfg/gaussian_mapper
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 SEQ_W, SEQ_H = 64, 48
 
@@ -190,11 +191,8 @@ def _resolved(extra, iters, **kw):
     for mod in (common, jcommon):
         mc, oc, mpc, rc, tkw = mod.resolve_configs(_args(mod, extra), iters,
                                                    **kw)
-        rcd = dataclass_dict(rc)
-        rcd.pop("kanchor", None)
-        rcd.pop("kgroup", None)
         out.append((dataclass_dict(mc), dataclass_dict(oc),
-                    dataclass_dict(mpc), rcd, tkw))
+                    dataclass_dict(mpc), dataclass_dict(rc), tkw))
     return out
 
 
@@ -211,7 +209,8 @@ def test_resolve_configs_matches_jax(tmp_path):
              ([], 10, dict(mapper_overrides=dict(pose_refine_every=25))),
              (["--opt-set", "pose_prior=0.005", "--model-set",
                "appearance_dim=0", "--kmax", "40"], 10, {}),
-             (["--packed-train", "off"], 10, {})]
+             (["--packed-train", "off"], 10, {}),
+             (["--kanchor", "4"], 10, {})]
     for name in ("RGB-D/Replica/replica_rgbd.yaml",
                  "Stereo/KITTI/kitti_stereo.yaml"):
         if (REF / name).exists():
@@ -235,10 +234,9 @@ def test_resolve_configs_matches_jax(tmp_path):
     assert common.resolve_dist_coeffs(args, "replica") is None
     assert common.resolve_dist_coeffs(
         _args(common, ["--undistort", "off"]), "tum") is None
-    for extra in (["--viewer-port", "8080"], ["--kanchor", "4"],
-                  ["--opt-set", "no_such_field=1"]):
-        with pytest.raises(SystemExit):
-            common.resolve_configs(_args(common, extra), 10)
+    with pytest.raises(SystemExit):
+        common.resolve_configs(_args(common, ["--opt-set",
+                                              "no_such_field=1"]), 10)
 
 
 def test_maker_arrays_match_jax():
@@ -414,7 +412,51 @@ def test_slam_rgbd_end_to_end(sequence, tmp_path):
 
 
 def test_slam_rgbd_refuses_unported(sequence, tmp_path):
-    """--viewer-port raises; nothing falls back."""
-    base = APP_ARGS + ["--path", str(sequence), "--out", str(tmp_path)]
-    with pytest.raises(SystemExit):
-        slam_rgbd.main(base + ["--viewer-port", "8000"])
+    """The two flags the port once refused now run: slam_rgbd with
+    --viewer-port on a free port serves frames while it maps (a client
+    thread's every /render a 200 JPEG) and after it returns, and --kanchor 3
+    runs end to end with kanchor and kgroup set on the eval path."""
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    codes, stop = [], threading.Event()
+
+    def client():
+        while not stop.is_set():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/render?z=-1", timeout=120) \
+                        as r:
+                    codes.append(r.status)
+            except OSError:  # the server is not up yet
+                stop.wait(0.05)
+
+    ct = threading.Thread(target=client)
+    ct.start()
+    res = None
+    try:
+        res = slam_rgbd.main(APP_ARGS + [
+            "--path", str(sequence), "--out", str(tmp_path),
+            "--viewer-port", str(port), "--kanchor", "3"])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/render",
+                                    timeout=120) as r:
+            frame = np.asarray(Image.open(io.BytesIO(r.read())))
+    finally:
+        stop.set()
+        ct.join(timeout=180)
+        if res is not None and res["viewer"] is not None:
+            res["viewer"].server.shutdown()
+            res["viewer"].server.server_close()
+    assert frame.shape == (480, 480, 3)
+    assert codes and set(codes) == {200}
+    assert not res["viewer"].errors
+    rc = res["trainer"].raster_config
+    assert (rc.kanchor, rc.kgroup) == (3, 4)
+    assert res["iterations"] == 10 and np.isfinite(res["psnr"])

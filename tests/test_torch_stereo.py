@@ -35,6 +35,7 @@ from test_torch_producers import (
     _run_both,
     assert_streams_equal,
 )
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 SEQ_W, SEQ_H = 96, 72
 

@@ -45,6 +45,7 @@ from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
 from segs_slam_tpu_torch.train import losses, optimizer
 from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.step import make_train_step
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 32
 SMALL = dict(feat_dim=8, n_offsets=4, appearance_dim=8, embedding_dim=4,

@@ -50,6 +50,7 @@ from segs_slam_tpu_torch.train.densify import (
 from segs_slam_tpu_torch.train.step import make_train_step
 from segs_slam_tpu_torch.train.trainer import Trainer
 from segs_slam_tpu_torch.utils import synthetic
+from test_torch_core import two_torch_threads  # noqa: F401 (autouse)
 
 W, H = 32, 32
 SMALL = dict(feat_dim=8, n_offsets=4, appearance_dim=8, embedding_dim=4,
