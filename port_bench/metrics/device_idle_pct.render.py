@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation ran on the card
+(the union of the device operations' intervals against the window)."""
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])

@@ -1,0 +1,8 @@
+"""Runtime kernel launches (cudaLaunchKernel and its kin, from the
+profiler's trace) a train iteration over the traced window."""
+
+
+def read(ctx):
+    if not ctx["units"] or not ctx["trace"]["launches"]:
+        return None
+    return ctx["trace"]["launches"] / ctx["units"]
