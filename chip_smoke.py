@@ -36,8 +36,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      above the untrained map's, K2 launched once per iteration and K3 once
      per keyframe in each of the two evaluations;
   6. trained map: a second Trainer built with the same flags. Inside the
-     frequency-loss window, the step's layers (forward, loss, backward,
-     Adam: make_train_step's record_function ranges) and the device's busy
+     frequency-loss window, the step's layers (inputs, forward, loss,
+     backward, stats, Adam, metrics: the train_step.* spans of
+     utils/tracing.py) and the device's busy
      share by torch.profiler. After 300 iterations, K1 and K2 against their
      plain versions, at the gates of phase 3, on the inputs of 24 further
      steps: with the loss's own cotangents, with seeded ones, and with the
@@ -175,7 +176,11 @@ KERNEL_FUNCS = {"blend_fwd": "blend_fwd_kernel",
 DEVICE_REPS = 20  # recorded launches an input for a kernel's device ms
 
 TRAINED_STEPS = 24
-LAYERS = ("forward", "loss", "backward", "adam")
+LAYERS = ("inputs", "forward", "loss", "backward", "stats", "adam",
+          "metrics")
+# the port's span names (utils/tracing.py): their device-side annotation
+# ranges are not kernels
+SPAN_PREFIXES = ("train_step.", "render.", "mapper.")
 
 # The SLAM phase: slam_rgbd with the pose oracle on the port's
 # make_rgbd_dataset sequence, frames cut from 200 to 160 (16 keyframes)
@@ -912,10 +917,11 @@ def phase_train_path():
 
 def profile_layers(t, n: int) -> dict:
     """The step's layers over n iterations by torch.profiler: the host time
-    of make_train_step's record_function ranges, and the device time of
-    the kernels launched inside each (autograd launches the backward's from
-    its own thread, so launches are matched to ranges by time); against the
-    median unprofiled step of n more iterations (CUDA events)."""
+    of the train_step.* spans (a densify adjust's left out), and the device
+    time of the kernels launched inside each (autograd launches the
+    backward's from its own thread, so launches are matched to ranges by
+    time); against the median unprofiled step of n more iterations (CUDA
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -930,7 +936,8 @@ def profile_layers(t, n: int) -> dict:
     ranges = sorted((e.time_range.start, e.time_range.end,
                      e.name.removeprefix("train_step."))
                     for e in events if e.device_type == DeviceType.CPU
-                    and e.name.startswith("train_step."))
+                    and e.name.startswith("train_step.")
+                    and e.name != "train_step.densify")
     if [r[2] for r in ranges] != list(LAYERS) * n:
         fail(f"the profiler saw the step ranges {[r[2] for r in ranges]}")
     host = dict.fromkeys(LAYERS, 0.0)
@@ -949,13 +956,13 @@ def profile_layers(t, n: int) -> dict:
         # to the enclosing range itself; the range's own device-side span
         # is not a kernel
         for k in e.kernels:
-            if not k.name.startswith("train_step."):
+            if not k.name.startswith(SPAN_PREFIXES):
                 device[name] += k.duration / 1e3 / n
                 by_kernel[k.name] = by_kernel.get(k.name, 0.0) \
                     + k.duration / 1e3 / n
     # every device event once, as a check on the attribution above
     device_events = [e for e in events if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith("train_step.")
+                     and not e.name.startswith(SPAN_PREFIXES)
                      and not getattr(e, "is_user_annotation", False)]
     total = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / n
     attributed = sum(device.values())
@@ -1485,7 +1492,7 @@ class SlamProbe:
         self._profile.__exit__(None, None, None)
         events = [e for e in self._profile.events()
                   if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("train_step.")
+                  and not e.name.startswith(SPAN_PREFIXES)
                   and not getattr(e, "is_user_annotation", False)]
         self._profile = None
         n = self.window[1]

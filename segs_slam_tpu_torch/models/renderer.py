@@ -34,6 +34,7 @@ from segs_slam_tpu_torch.ops.rasterizer.rasterize import (
     project,
     tiles_to_image,
 )
+from segs_slam_tpu_torch.utils import tracing
 
 
 class RenderOutput(NamedTuple):
@@ -62,19 +63,22 @@ def neural_gaussians_for_view(
 ) -> tuple[torch.Tensor, NeuralGaussians]:
     """The anchor visibility prefilter and the decode of the visible anchors'
     gaussians for one view: (visible_anchor_mask, NeuralGaussians)."""
-    # prefilter_voxel uses the anchors with scaling[:, :3] and normalized
-    # rotations
-    grid_scale3 = torch.exp(state.scaling[:, :3])
-    rotation = state.rotation / torch.clamp(
-        torch.linalg.norm(state.rotation, dim=-1, keepdim=True), min=1e-12)
-    visible = visible_filter(
-        state.anchor, grid_scale3, rotation,
-        cam["world_view_transform"], cam["full_proj_transform"],
-        width, height, cam["tan_fovx"], cam["tan_fovy"],
-        config=raster_config, valid=state.active)
-    neural = generate_neural_gaussians(
-        state, decoders, cam["camera_center"], cam["pose7"], visible,
-        model_config)
+    with tracing.span("render.prefilter"):
+        # prefilter_voxel uses the anchors with scaling[:, :3] and
+        # normalized rotations
+        grid_scale3 = torch.exp(state.scaling[:, :3])
+        rotation = state.rotation / torch.clamp(
+            torch.linalg.norm(state.rotation, dim=-1, keepdim=True),
+            min=1e-12)
+        visible = visible_filter(
+            state.anchor, grid_scale3, rotation,
+            cam["world_view_transform"], cam["full_proj_transform"],
+            width, height, cam["tan_fovx"], cam["tan_fovy"],
+            config=raster_config, valid=state.active)
+    with tracing.span("render.decode"):
+        neural = generate_neural_gaussians(
+            state, decoders, cam["camera_center"], cam["pose7"], visible,
+            model_config)
     return visible, neural
 
 

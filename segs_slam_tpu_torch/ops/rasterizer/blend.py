@@ -42,6 +42,7 @@ from segs_slam_tpu_torch.ops.rasterizer.binning import (
     expand_and_sort_packed_train,
 )
 from segs_slam_tpu_torch.ops.rasterizer.preprocess import RasterConfig
+from segs_slam_tpu_torch.utils import tracing
 
 NFEAT = NPAY + 1
 F_X, F_Y, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_D = range(NFEAT)
@@ -534,6 +535,16 @@ def uses_packed_train(config: RasterConfig, tiles_x: int) -> bool:
 train_binnings = {"packed": 0, "f32": 0}
 
 
+def _count_compact_dropped(num_compact: torch.Tensor,
+                           config: RasterConfig) -> None:
+    """While tracing: the visible gaussians beyond the static `compact`
+    capacity, which the binning dropped (a device tensor, not waited
+    for)."""
+    if tracing.enabled():
+        tracing.count("render.compact_dropped",
+                      torch.clamp(num_compact - config.compact, min=0))
+
+
 class _BinnedBlend(torch.autograd.Function):
     """Compaction + expansion + sort (the f32 or the packed training
     binning) + K1 forward; K2 + the gradient routing of the JAX
@@ -542,18 +553,22 @@ class _BinnedBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, depth, bg, aux, config, tiles_x, tiles_y):
         aux = dict(aux, depth=depth)
-        if uses_packed_train(config, tiles_x):
-            cg = compact_gaussians_packed(feats, aux, config, with_orig=True)
-            binned = expand_and_sort_packed_train(cg, tiles_x, tiles_y,
-                                                  config)
-            train_binnings["packed"] += 1
-        else:
-            cg = compact_gaussians(feats, aux, config)
-            binned = expand_and_sort(cg, tiles_x, tiles_y, config)
-            train_binnings["f32"] += 1
-        color, final_t, depth_img, ncontrib = blend_forward(
-            binned.feats_sorted, binned.tile_start, binned.tile_stop, bg,
-            tiles_x, config)
+        with tracing.span("render.binning"):
+            if uses_packed_train(config, tiles_x):
+                cg = compact_gaussians_packed(feats, aux, config,
+                                              with_orig=True)
+                binned = expand_and_sort_packed_train(cg, tiles_x, tiles_y,
+                                                      config)
+                train_binnings["packed"] += 1
+            else:
+                cg = compact_gaussians(feats, aux, config)
+                binned = expand_and_sort(cg, tiles_x, tiles_y, config)
+                train_binnings["f32"] += 1
+        _count_compact_dropped(cg.num_valid, config)
+        with tracing.span("render.blend"):
+            color, final_t, depth_img, ncontrib = blend_forward(
+                binned.feats_sorted, binned.tile_start, binned.tile_stop, bg,
+                tiles_x, config)
         ctx.mark_non_differentiable(ncontrib, binned.num_instances,
                                     cg.num_valid)
         ctx.save_for_backward(binned.feats_sorted, binned.tile_start,
@@ -568,21 +583,25 @@ class _BinnedBlend(torch.autograd.Function):
         (feats_sorted, tile_start, tile_stop, gid_sorted, orig_id, valid, bg,
          final_t, ncontrib) = ctx.saved_tensors
         config, n = ctx.config, ctx.n
-        dinst = blend_backward(feats_sorted, tile_start, tile_stop, bg,
-                               ctx.tiles_x, config, dcolor, ddepth, dfinal_t,
-                               final_t, ncontrib)  # [10, NK]
-        dev = dinst.device
-        # segment-sum of the instance columns into their compact gaussians,
-        # masked to the valid ones, then scattered back through the
-        # compaction (unique destinations; invalid rows go to a dropped row)
-        dcompact = torch.zeros((config.compact, NFEAT), dtype=torch.float32,
-                               device=dev)
-        dcompact.index_add_(0, gid_sorted.long(), dinst.T)
-        dcompact = torch.where(valid[:, None], dcompact, 0.0)
-        dorig = torch.zeros((n + 1, NFEAT), dtype=torch.float32, device=dev)
-        dorig.index_add_(0, torch.where(valid, orig_id, n).long(), dcompact)
-        dorig = dorig[:n]
-        dbg = (final_t * dcolor).sum(dim=(0, 2))
+        with tracing.span("render.blend_bwd"):
+            dinst = blend_backward(feats_sorted, tile_start, tile_stop, bg,
+                                   ctx.tiles_x, config, dcolor, ddepth,
+                                   dfinal_t, final_t, ncontrib)  # [10, NK]
+            dev = dinst.device
+            # segment-sum of the instance columns into their compact
+            # gaussians, masked to the valid ones, then scattered back
+            # through the compaction (unique destinations; invalid rows go
+            # to a dropped row)
+            dcompact = torch.zeros((config.compact, NFEAT),
+                                   dtype=torch.float32, device=dev)
+            dcompact.index_add_(0, gid_sorted.long(), dinst.T)
+            dcompact = torch.where(valid[:, None], dcompact, 0.0)
+            dorig = torch.zeros((n + 1, NFEAT), dtype=torch.float32,
+                                device=dev)
+            dorig.index_add_(0, torch.where(valid, orig_id, n).long(),
+                             dcompact)
+            dorig = dorig[:n]
+            dbg = (final_t * dcolor).sum(dim=(0, 2))
         return (dorig[:, :NPAY].T, dorig[:, NPAY], dbg, None, None, None,
                 None)
 
@@ -621,21 +640,26 @@ def binned_blend_eval(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     num_instances, num_compact): the eval kernels compute no final_T, depth
     or n_contrib image (JAX returns zeros there)."""
     bg = bg.to(torch.float32)
+    if config.sel_direct and not packed_kernel:
+        raise ValueError("the sel_direct binning feeds the packed kernel "
+                         "only")
     with torch.no_grad():
-        if config.sel_direct:
-            if not packed_kernel:
-                raise ValueError("the sel_direct binning feeds the packed "
-                                 "kernel only")
-            cols, start, stop, num_instances, num_compact = bin_eval_direct(
-                feats, aux, tiles_x, tiles_y, config, return_packed=True)
-        else:
-            pc = compact_gaussians_packed(feats, aux, config)
-            cols, start, stop, num_instances, _ = expand_and_sort_packed(
-                pc, tiles_x, tiles_y, config, return_packed=packed_kernel)
-            num_compact = pc.num_valid
-        if packed_kernel:
-            color = blend_forward_eval_packed(as_u32_bits(cols), start, stop,
-                                              bg, tiles_x, config)
-        else:
-            color = blend_forward_eval(cols, start, stop, bg, tiles_x, config)
+        with tracing.span("render.binning"):
+            if config.sel_direct:
+                cols, start, stop, num_instances, num_compact = \
+                    bin_eval_direct(feats, aux, tiles_x, tiles_y, config,
+                                    return_packed=True)
+            else:
+                pc = compact_gaussians_packed(feats, aux, config)
+                cols, start, stop, num_instances, _ = expand_and_sort_packed(
+                    pc, tiles_x, tiles_y, config, return_packed=packed_kernel)
+                num_compact = pc.num_valid
+        _count_compact_dropped(num_compact, config)
+        with tracing.span("render.blend"):
+            if packed_kernel:
+                color = blend_forward_eval_packed(as_u32_bits(cols), start,
+                                                  stop, bg, tiles_x, config)
+            else:
+                color = blend_forward_eval(cols, start, stop, bg, tiles_x,
+                                           config)
     return color, None, None, None, num_instances, num_compact

@@ -22,6 +22,7 @@ from segs_slam_tpu_torch.ops.rasterizer.preprocess import (
     compute_cov3d,
     preprocess_gaussians,
 )
+from segs_slam_tpu_torch.utils import tracing
 
 
 def blend_inputs(proj, opacities, colors, mean2d_offset=None):
@@ -72,11 +73,13 @@ def project(
 ):
     """The front half of `rasterize`: (GaussianProjection, feats, aux), the
     blends' inputs (see `blend_inputs`)."""
-    cov3d = compute_cov3d(scales, rotations, scale_modifier)
-    proj = preprocess_gaussians(
-        means3d, cov3d, world_view_transform, full_proj_transform, width,
-        height, tan_fovx, tan_fovy, config, valid_in=valid)
-    feats, aux = blend_inputs(proj, opacities, colors, mean2d_offset)
+    with tracing.span("render.project"):
+        cov3d = compute_cov3d(scales, rotations, scale_modifier)
+        proj = preprocess_gaussians(
+            means3d, cov3d, world_view_transform, full_proj_transform, width,
+            height, tan_fovx, tan_fovy, config, valid_in=valid)
+        feats, aux = blend_inputs(proj, opacities, colors, mean2d_offset)
+    tracing.count("render.kmax_truncated", proj.kmax_truncated)
     return proj, feats, aux
 
 

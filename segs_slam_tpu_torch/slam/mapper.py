@@ -36,6 +36,7 @@ from segs_slam_tpu_torch.slam.protocol import (
 )
 from segs_slam_tpu_torch.slam import frontends
 from segs_slam_tpu_torch.train.trainer import Trainer
+from segs_slam_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +98,6 @@ class Mapper:
         self.loop_closure_iteration = False
         self._depth_point_cache: list[np.ndarray] = []
         self._cached_frames = 0
-        self.metrics_history: list[dict] = []
         self._refine_rr = 0
         # with debug_ckpt_at > 0, the train state is saved to
         # debug_ckpt_path (io/checkpoint.py) after that iteration
@@ -218,12 +218,16 @@ class Mapper:
         while not self.stopped:
             if max_iterations is not None and self.trainer.iteration >= max_iterations:
                 break
-            op = self.queue.pop(timeout=0.01)
+            tracing.peak("mapper.queue_depth_max", self.queue.qsize())
+            with tracing.span("mapper.queue_wait"):
+                op = self.queue.pop(timeout=0.01)
             if op is not None:
-                if not self.initialized:
-                    self._try_initialize(op)
-                    continue
-                self._apply_operation(op)
+                tracing.count("mapper.ops", 1)
+                with tracing.span("mapper.apply_op"):
+                    if not self.initialized:
+                        self._try_initialize(op)
+                        continue
+                    self._apply_operation(op)
             if not self.initialized:
                 if self.producer_done and not self.queue.has_operation():
                     break  # producer ended before enough keyframes arrived
@@ -248,27 +252,15 @@ class Mapper:
                 print(f"[mapper] saved debug ckpt at "
                       f"{self.trainer.iteration}", flush=True)
             if m is not None and self.trainer.iteration % 100 == 0:
-                loss = float(m["loss"])
-                self.metrics_history.append(
-                    {"iter": self.trainer.iteration,
-                     "loss": loss, "psnr": float(m["psnr"])}
-                )
-                nfg = int(m.get("nonfinite_grads", 0))
-                anchor_sum = float(self.trainer.state.anchors.anchor.sum())
-                if nfg or not (np.isfinite(loss) and np.isfinite(anchor_sum)):
-                    print(f"[mapper] iter {self.trainer.iteration}: "
-                          f"nonfinite_grads={nfg} loss={loss} "
-                          f"anchor_sum={anchor_sum}", flush=True)
-                nc = int(m.get("num_compact", 0))
-                if nc > self.trainer.raster_config.compact:
-                    print(f"[mapper] WARNING iter {self.trainer.iteration}: "
-                          f"{nc} visible gaussians exceed compact capacity "
-                          f"{self.trainer.raster_config.compact}; overflow "
-                          "dropped", flush=True)
+                # the operator's warnings: the one host read of the device
+                # in a hundred iterations
+                with tracing.span("mapper.log"):
+                    self._warn(m)
             if op is None and m is None:
                 if self.producer_done and not self.queue.has_operation():
                     break
-                time.sleep(idle_sleep)
+                with tracing.span("mapper.idle"):
+                    time.sleep(idle_sleep)
 
         # PHASE 2.5: shutdown pose refinement (see MapperConfig)
         if self.initialized:
@@ -288,6 +280,23 @@ class Mapper:
         # PHASE 3: tail optimization
         for _ in range(self.config.tail_iterations):
             self.trainer.train_iteration()
+
+    def _warn(self, m: dict) -> None:
+        """Prints non-finite gradients, loss or anchors, and visible
+        gaussians dropped beyond the compaction capacity."""
+        loss = float(m["loss"])
+        nfg = int(m.get("nonfinite_grads", 0))
+        anchor_sum = float(self.trainer.state.anchors.anchor.sum())
+        if nfg or not (np.isfinite(loss) and np.isfinite(anchor_sum)):
+            print(f"[mapper] iter {self.trainer.iteration}: "
+                  f"nonfinite_grads={nfg} loss={loss} "
+                  f"anchor_sum={anchor_sum}", flush=True)
+        nc = int(m.get("num_compact", 0))
+        if nc > self.trainer.raster_config.compact:
+            print(f"[mapper] WARNING iter {self.trainer.iteration}: "
+                  f"{nc} visible gaussians exceed compact capacity "
+                  f"{self.trainer.raster_config.compact}; overflow "
+                  "dropped", flush=True)
 
     def signal_stop(self):
         """Producer finished: training continues to the budget

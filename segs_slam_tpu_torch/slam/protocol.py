@@ -82,6 +82,10 @@ class MappingQueue:
     def has_operation(self) -> bool:
         return not self._q.empty()
 
+    def qsize(self) -> int:
+        """The operations waiting (approximate while a producer runs)."""
+        return self._q.qsize()
+
     def pop(self, timeout: float | None = None) -> MappingOperation | None:
         try:
             return self._q.get(timeout=timeout)

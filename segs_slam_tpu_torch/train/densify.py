@@ -34,6 +34,7 @@ from segs_slam_tpu_torch.ops.rasterizer.preprocess import to_int32
 from segs_slam_tpu_torch.train import optimizer
 from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.step import DensifyStats, TrainState
+from segs_slam_tpu_torch.utils import tracing
 
 _SENTINEL = 2**30
 
@@ -148,6 +149,9 @@ def adjust_anchor(ts: TrainState, rand_keeps: list[torch.Tensor],
                    ).reshape(-1)
 
     a = ts.anchors
+    traced = tracing.enabled()
+    if traced:  # the active anchors before growth
+        n_before = a.active.sum(dtype=torch.int32)
     scale3 = torch.exp(a.scaling[:, :3])
     cand_xyz = (a.anchor[:, None, :] + a.offset * scale3[:, None, :]
                 ).reshape(-1, 3)
@@ -176,6 +180,11 @@ def adjust_anchor(ts: TrainState, rand_keeps: list[torch.Tensor],
     stats.offset_grad_accum.masked_fill_(prune[:, None], 0.0)
 
     new_active = active & ~prune
+    if traced:
+        tracing.count("densify.adjusts", 1)
+        tracing.count("densify.grown", active.sum(dtype=torch.int32)
+                      - n_before)
+        tracing.count("densify.pruned", prune.sum(dtype=torch.int32))
     scaling = ts.anchors.scaling.clone()
     scaling[:, 3:] = torch.clamp(scaling[:, 3:], max=0.05)
 

@@ -57,6 +57,7 @@ from segs_slam_tpu_torch.train.step import (
     init_train_state,
     make_train_step,
 )
+from segs_slam_tpu_torch.utils import tracing
 
 
 def _so3_exp_np(w: np.ndarray) -> np.ndarray:
@@ -428,19 +429,22 @@ class Trainer:
         level, with its pose row when poses are optimised (and
         densification when due). Returns the step's metrics, on the device,
         or None when the scene has no keyframe."""
-        kf = self.scene.sample_sliding_window_keyframe()
-        if kf is None:
-            return None
-        self.iteration += 1
-        n = self.num_pyramid_sub_levels
-        level = kf.next_pyramid_level(n) if n else n
-        w, h = self._level_sizes[level]
-        cam, gt = self._kf_inputs(kf, level)
-        row = self._pose_rows.get(kf.kf_id) if self.optimize_poses else None
-        # the depth term at full resolution only
-        gt_depth = (self._depth_of(kf) if self.opt_config.lambda_depth > 0.0
-                    and (w, h) == (self.width, self.height) else None)
-        step = self._step_for(w, h)
+        with tracing.span("train_step.inputs"):
+            kf = self.scene.sample_sliding_window_keyframe()
+            if kf is None:
+                return None
+            self.iteration += 1
+            n = self.num_pyramid_sub_levels
+            level = kf.next_pyramid_level(n) if n else n
+            w, h = self._level_sizes[level]
+            cam, gt = self._kf_inputs(kf, level)
+            row = (self._pose_rows.get(kf.kf_id) if self.optimize_poses
+                   else None)
+            # the depth term at full resolution only
+            gt_depth = (self._depth_of(kf)
+                        if self.opt_config.lambda_depth > 0.0
+                        and (w, h) == (self.width, self.height) else None)
+            step = self._step_for(w, h)
         oc = self.opt_config
         it = self.iteration
         with self.lock:
@@ -448,7 +452,8 @@ class Trainer:
                                        kf_row=row, gt_depth=gt_depth)
             if oc.update_from < it < oc.update_until \
                     and it % oc.update_interval == 0:
-                self.state = self._adjust(self.state, self._generator)
+                with tracing.span("train_step.densify"):
+                    self.state = self._adjust(self.state, self._generator)
         return metrics
 
     def train(self, iterations: int, log_every: int = 0, log_fn=print,
