@@ -5,9 +5,10 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints the card's name and power
      limit and the torch / CUDA / nvcc versions;
-  2. build: compiles kernels K1 (csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu)
-     and K3 + K4 (csrc/blend_eval.cu) from this checkout, one nvcc each, in
-     parallel; prints ptxas registers and spills;
+  2. build: compiles kernels K1 (csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu),
+     K3 + K4 (csrc/blend_eval.cu) and K5 (csrc/preprocess.cu) from this
+     checkout, one nvcc each, in parallel; prints ptxas registers and
+     spills;
   3. kernels: on a full-size 640x480 view of a seeded full-width map, K1
      against its plain PyTorch version on the same binned input (n_contrib
      equal on >= 99.99 % of pixels; there, colour and final_T within 2e-4
@@ -23,10 +24,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      beside its call time (CUDA events around one wrapper call, host work
      included), its bound, the instances a tile (mean, p99, max) and the
      instances its walk reaches; per-layer breakdowns (CUDA events) of the
-     f32 render and of the eval render;
+     f32 render and of the eval render. Then K5's two entries on that view
+     at the main path's shapes (the mask over the 65,536 anchor slots, the
+     full entry over the 655,360 gaussian slots) against the eager chain
+     compute_cov3d + preprocess_gaussians + blend_inputs, every output bit
+     for bit (NaN as NaN); each entry's device time, call time, host time
+     and byte bound (42 and 126 B a gaussian), and the chain's device time,
+     device operations and host time;
   4. render path: the map rendered by the render_views app (8 orbit views
      at 480x480, calibrate_eval_config + EvalRenderer); images finite, in
-     [0, 1] and not blank, K3 launched once per view and no other kernel;
+     [0, 1] and not blank, K3 launched once per view and no other blend
+     kernel, K5 twice a view (prefilter and projection) and twice on each of
+     the four calibration views;
      each view against the f32 render of the same view within the pack8
      bound (max 2e-2, mean 1.5e-3) wherever neither path's capacities bind;
      both paths' ms/view;
@@ -34,7 +43,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      iterations with the frequency losses; the loss finite throughout and
      lower at the end than at the start, the evaluate PSNR at least 3 dB
      above the untrained map's, K2 launched once per iteration and K3 once
-     per keyframe in each of the two evaluations;
+     per keyframe in each of the two evaluations, K5 at least once an
+     iteration (the prefilter; the training projection keeps the chain);
   6. trained map: a second Trainer built with the same flags. Inside the
      frequency-loss window, the step's layers (inputs, forward, loss,
      backward, stats, Adam, metrics: the train_step.* spans of
@@ -62,7 +72,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      capacity 2^16, packed_train auto) for 1,700 iterations: mapping
      ms/iter and iters/s (host clock around Mapper.run to a synchronised
      device), device time and busy share over a profiler window of 20
-     mapper iterations, K1/K2/K3 launches, the training binning (must be
+     mapper iterations, K1/K2/K3/K5 launches (K5 exactly once in every
+     training iteration: the prefilter), the training binning (must be
      the packed one), active anchors, densification adjusts (must be 2),
      record_all_keyframes' PSNR, SSIM, L1 and render FPS read back by the
      harness, ATE against groundtruth.txt (at most 1e-3 m). K1 and K2
@@ -155,7 +166,8 @@ WORK = ROOT / "build" / "chip_smoke"
 SEED = 0
 N_VIEWS = 8
 TRAIN_ITERS = 300
-LIBRARIES = ("blend_fwd", "blend_bwd", "blend_eval")  # csrc/<name>.cu
+LIBRARIES = ("blend_fwd", "blend_bwd", "blend_eval",
+             "preprocess")  # csrc/<name>.cu
 # the kernels line's entries: (source, TPU kernel replaced)
 KERNELS = {
     "blend_fwd": ("segs_slam_tpu_torch/csrc/blend_fwd.cu",
@@ -166,13 +178,18 @@ KERNELS = {
                           "segs_slam_tpu/ops/rasterizer/blend.py:252"),
     "blend_eval": ("segs_slam_tpu_torch/csrc/blend_eval.cu",
                    "segs_slam_tpu/ops/rasterizer/blend.py:720"),
+    # no Pallas kernel: XLA fuses the jnp preprocess inside its jit
+    "preprocess": ("segs_slam_tpu_torch/csrc/preprocess.cu", "none"),
 }
+# the tile-blend kernels, which the rankings compare
+BLEND_KERNELS = ("blend_fwd", "blend_bwd", "blend_eval_packed", "blend_eval")
 
 # each kernel's __global__ function, as the profiler names its launches
 KERNEL_FUNCS = {"blend_fwd": "blend_fwd_kernel",
                 "blend_bwd": "blend_bwd_kernel",
                 "blend_eval_packed": "blend_eval_kernel",
-                "blend_eval": "blend_eval_kernel"}
+                "blend_eval": "blend_eval_kernel",
+                "preprocess": "preprocess_kernel"}
 DEVICE_REPS = 20  # recorded launches an input for a kernel's device ms
 
 TRAINED_STEPS = 24
@@ -446,12 +463,22 @@ def check_backward(args) -> dict:
 
 
 def launch_counters():
+    import importlib
+
     import segs_slam_tpu_torch.ops.rasterizer.blend as blend
 
+    rasterize = importlib.import_module(
+        "segs_slam_tpu_torch.ops.rasterizer.rasterize")
     return {"blend_fwd": blend.blend_forward_cuda,
             "blend_bwd": blend.blend_backward_cuda,
             "blend_eval_packed": blend.blend_forward_eval_packed_cuda,
-            "blend_eval": blend.blend_forward_eval_cuda}
+            "blend_eval": blend.blend_forward_eval_cuda,
+            "preprocess": rasterize.preprocess_cuda}
+
+
+def blend_launches(launches: dict) -> dict:
+    """The tile-blend kernels' entries of a launch count."""
+    return {k: launches[k] for k in BLEND_KERNELS}
 
 
 def reset_launches():
@@ -499,7 +526,7 @@ def phase_build():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
-    print(f"[build] K1, K2, K3 + K4 in {time.perf_counter() - t0:.2f} s",
+    print(f"[build] K1, K2, K3 + K4, K5 in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
 
@@ -765,6 +792,52 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
             for name, r in results.items()}
 
 
+def phase_preprocess_kernel(anchors, decoders, mc, rc, dev) -> dict:
+    """K5's two entries against the eager chain on the kernel phase's
+    640x480 view at the main path's shapes (the anchor prefilter's mask
+    over every anchor slot, the projection over every gaussian slot), every
+    output bit for bit; their times beside the chain's (see
+    tools/preprocess_ab.py). Returns the kernels line's entry: the full
+    entry's numbers, the mask's and the chain's under "entries"."""
+    from types import SimpleNamespace
+
+    from segs_slam_tpu_torch.core import Camera, Keyframe
+    from segs_slam_tpu_torch.tools import preprocess_ab
+
+    w, h = 640, 480
+    cam = Camera(camera_id=0, width=w, height=h, fx=500.0, fy=500.0,
+                 cx=w / 2, cy=h / 2)
+    kf = Keyframe(kf_id=0, camera=cam, quat=[1, 0, 0, 0], trans=[0, 0, 0])
+    c = {k: torch.as_tensor(v, device=dev)
+         for k, v in kf.render_inputs().items()}
+    scene = SimpleNamespace(state=anchors, decoders=decoders, w=w, h=h,
+                            mc=mc, rc=rc)
+    mask_args, full_args = preprocess_ab.k5_inputs(scene, c)
+    diff = preprocess_ab.k5_differences(mask_args, full_args)
+    with torch.no_grad():
+        alive = int((preprocess_ab.chain(full_args)[0].radius > 0).sum())
+        visible = int(preprocess_ab.chain(mask_args).sum())
+    nums = preprocess_ab.k5_numbers(mask_args, full_args)
+    for entry, r in nums.items():
+        ch = r["chain"]
+        print(f"[preprocess] K5 {entry} entry, {r['gaussians']} gaussians: "
+              f"device {r['ms']:.4f} ms (profiler, mean of {DEVICE_REPS}+), "
+              f"call {r['call_ms']:.4f} ms, host {r['host_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms (bytes); the eager chain: "
+              f"device {ch['device_ms']:.4f} ms in {ch['device_ops']:.0f} "
+              f"device operations, host {ch['host_ms']:.3f} ms", flush=True)
+    print(f"[preprocess] against the chain: {visible} anchors visible, "
+          f"{alive} gaussians alive; differing elements {diff}", flush=True)
+    if any(diff.values()):
+        fail(f"K5 differs from the eager chain: {diff}")
+    if not (visible and alive):
+        fail("the K5 view saw no anchor or no gaussian")
+    full = nums["full"]
+    return {"ms": full["ms"], "call_ms": full["call_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": "bytes",
+            "entries": nums}
+
+
 def live_and_large(anchors, decoders, mc, rc, cam, w, h):
     """A view's live gaussians and those whose kmax-clamped footprint
     exceeds ksmall and kmid: what the compaction and the tiers must hold."""
@@ -783,7 +856,7 @@ def phase_render_path(map_path, rc, mc):
     from segs_slam_tpu_torch.apps import render_views
     from segs_slam_tpu_torch.core import Camera, Keyframe
     from segs_slam_tpu_torch.io.convert import load_map
-    from segs_slam_tpu_torch.models.renderer import render
+    from segs_slam_tpu_torch.models.renderer import EvalRenderer, render
 
     out_dir = WORK / "views"
     size = 480
@@ -794,7 +867,22 @@ def phase_render_path(map_path, rc, mc):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    views = render_views.main(argv)
+    # K5's launches in each view's render (the rest: the calibration's)
+    k5_views = []
+    counts = EvalRenderer.render_with_counts
+
+    def render_with_counts(self, *a, **kw):
+        k5 = launch_counters()["preprocess"]
+        before = k5.launches
+        out = counts(self, *a, **kw)
+        k5_views.append(k5.launches - before)
+        return out
+
+    EvalRenderer.render_with_counts = render_with_counts
+    try:
+        views = render_views.main(argv)
+    finally:
+        EvalRenderer.render_with_counts = counts
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
@@ -812,8 +900,11 @@ def phase_render_path(map_path, rc, mc):
             fail(f"view {i} PNG missing")
     want = dict.fromkeys(KERNELS, 0)
     want["blend_eval_packed"] = N_VIEWS
-    if launches != want:
-        fail(f"launches {launches} for {N_VIEWS} views, expected {want}")
+    # two a view, and two on each of render_views' four calibration views
+    want["preprocess"] = 2 * (N_VIEWS + 4)
+    if launches != want or k5_views != [2] * N_VIEWS:
+        fail(f"launches {launches} for {N_VIEWS} views, expected {want}; "
+             f"K5 a view {k5_views}")
     cal = views[0]["raster_config"]
     ms = [v["ms"] for v in views]
     print(f"[render] render_views: {N_VIEWS} views at {size}x{size} through "
@@ -910,8 +1001,11 @@ def phase_train_path():
     # per iteration; K3: the untrained and the final evaluate
     want = {"blend_fwd": n_views + TRAIN_ITERS, "blend_bwd": TRAIN_ITERS,
             "blend_eval_packed": 2 * n_views, "blend_eval": 0}
-    if launches != want:
-        fail(f"launches {launches}, expected {want}")
+    # K5: each step's prefilter, and the renders outside the steps
+    if blend_launches(launches) != want \
+            or launches["preprocess"] < TRAIN_ITERS:
+        fail(f"launches {launches}, expected {want} and K5 at least once "
+             f"an iteration")
     return launches
 
 
@@ -1188,8 +1282,11 @@ def trained_eval(t) -> dict:
           f"eval config ksmall {rc.ksmall} kmid {rc.kmid} nmid {rc.nmid} "
           f"nlarge {rc.nlarge} compact {rc.compact} pack8 {rc.pack8}",
           flush=True)
-    if launches != want or len(captured) != n_kf:
-        fail(f"evaluate launched {launches}, expected {want}")
+    # K5: twice a keyframe, and on the calibration's views
+    if blend_launches(launches) != blend_launches(want) \
+            or launches["preprocess"] < 2 * n_kf or len(captured) != n_kf:
+        fail(f"evaluate launched {launches}, expected {want} and K5 at "
+             f"least twice a keyframe")
 
     sums = dict.fromkeys(("call_ms", "plain_ms"), 0.0)
     work = np.zeros(2)
@@ -1404,6 +1501,7 @@ class SlamProbe:
     def __init__(self, dev, window=None, capture=None):
         self.dev, self.window, self.capture = dev, window, capture
         self.losses, self.gains, self.captured = [], [], []
+        self.k5_per_iter: list = []  # K5 launches in each iteration trained
         self.sizes: dict = {}
         self.adjusts = 0
         self.window_stats = None
@@ -1426,10 +1524,13 @@ class SlamProbe:
                 probe._start_window()
             probe._capturing = bool(probe.capture) and (
                 probe.capture[0] <= it < sum(probe.capture))
+            k5 = launch_counters()["preprocess"]
+            before = k5.launches
             m = iterate(trainer)
             probe._capturing = False
             if m is not None:
                 probe.losses.append(m["loss"])
+                probe.k5_per_iter.append(k5.launches - before)
             if probe.window and it == sum(probe.window) - 1:
                 probe._stop_window()
             return m
@@ -1603,6 +1704,12 @@ def slam_run_a(seq: Path, dev) -> dict:
             and launches["blend_bwd"] == SLAM_ITERS
             and launches["blend_eval_packed"] >= n_kf):
         fail(f"run A launched {launches}")
+    # K5: the prefilter of each step (its projection asks for gradients)
+    k5 = sorted(set(probe.k5_per_iter))
+    print(f"[slam] run A: K5 launches an iteration {k5} over "
+          f"{len(probe.k5_per_iter)} iterations", flush=True)
+    if k5 != [1] or len(probe.k5_per_iter) != SLAM_ITERS:
+        fail(f"run A's iterations launched K5 {k5} times each")
     if not run.get("ate_rmse", np.inf) <= 1e-3:
         fail(f"run A's ATE {run.get('ate_rmse')} m is above 1e-3 m")
     if not all(np.isfinite(run.get(k, np.nan))
@@ -2149,8 +2256,10 @@ def viewer_checkpoint(dev) -> dict:
           f"K3's plain version: {levels} 8-bit levels apart", flush=True)
     if page[0] != 200 or b"<img" not in page[1]:
         fail("the viewer's page did not load")
-    if launches["blend_eval_packed"] != LAST_REQUESTS or any(
-            v for k, v in launches.items() if k != "blend_eval_packed"):
+    if launches["blend_eval_packed"] != LAST_REQUESTS \
+            or launches["preprocess"] != 2 * LAST_REQUESTS or any(
+                v for k, v in launches.items()
+                if k not in ("blend_eval_packed", "preprocess")):
         fail(f"the viewer's {LAST_REQUESTS} renders launched {launches}")
     if levels > 1 or not max(lit) > 0:
         fail(f"the viewer's frame is {levels} levels off its plain version "
@@ -2654,7 +2763,7 @@ def print_ranking(launches, trained, at_640):
     trained map's inputs (K4: the 640x480 view), and the same at 640x480
     for the launches of a run at that size."""
     rows = []
-    for name in KERNELS:
+    for name in BLEND_KERNELS:
         t, v = trained[name], at_640[name]
         rows.append((launches[name] * (t["ms"] - t["bound_ms"]), name,
                      launches[name],
@@ -2667,10 +2776,10 @@ def print_ranking(launches, trained, at_640):
     keys = ("ms", "call_ms", "bound_ms", "pixels_per_thread")
     print("[rank] device ms / call ms / bound ms / pixels a thread: trained "
           + json.dumps({n: [round(trained[n][k], 4) for k in keys]
-                        for n in KERNELS})
+                        for n in BLEND_KERNELS})
           + "; 640x480 "
           + json.dumps({n: [round(at_640[n][k], 4) for k in keys]
-                        for n in KERNELS}), flush=True)
+                        for n in BLEND_KERNELS}), flush=True)
 
 
 def print_slam_ranking(launches, slam, trained):
@@ -2711,11 +2820,13 @@ def main():
     evals = phase_eval_kernels(anchors, decoders, mc, rc, dev)
     at_640["blend_eval_packed"] = evals["K3 pack8"]
     at_640["blend_eval"] = evals["K4"]
+    k5 = phase_preprocess_kernel(anchors, decoders, mc, rc, dev)
     del anchors, decoders
     phase_render_path(map_path, rc, mc)
     launches = phase_train_path()
     kernels = phase_trained()
     kernels["blend_eval"] = dict(evals["K4"], library_ms=None)
+    kernels["preprocess"] = k5
     phase_densify()
     phase_small_input(dev)
     print_ranking(launches, kernels, at_640)
@@ -2729,7 +2840,8 @@ def main():
     # each path's counts beside them; K1 and K2 numbers from run A's
     # packed-binning steps (phase 9), with those on train_colmap's and
     # slam_stereo's own steps (phase 10) under numbers_by_path; K3's from
-    # the trained map (phase 6), K4's from the 640x480 view (phase 3)
+    # the trained map (phase 6), K4's and K5's from the 640x480 view
+    # (phase 3)
     kernels.update(slam["kernels"])
     for name in ("blend_fwd", "blend_bwd"):
         kernels[name]["numbers_by_path"] = {
