@@ -8,7 +8,11 @@ Trainer's EvalRenderer (kernel K3) (reference: examples/train_colmap.cpp:
 
     python -m segs_slam_tpu_torch.apps.train_colmap --scene <dir with
         sparse/0 and images/> [--iters 30000] [--yaml cfg.yaml]
-        [--out dir] [--device cuda]
+        [--compact 0 --kmax 0] [--out dir] [--device cuda]
+
+`--compact 0 --kmax 0` trains and evaluates through the exact binning (no
+compaction cap, no footprint clamp: RasterConfig.exact), as the published
+rasterizer bins.
 """
 
 from __future__ import annotations
@@ -77,10 +81,11 @@ def main(argv=None) -> dict:
     cam = Camera(camera_id=cam0.camera_id, width=cam0.width // s,
                  height=cam0.height // s, fx=fx / s, fy=fy / s,
                  cx=cx / s, cy=cy / s)
-    # packed_train stays off, as in the JAX app: the f32 training binning
+    # packed_train stays off, as in the JAX app: the f32 training binning;
+    # --compact 0 --kmax 0 is the exact binning, which takes no tiers
+    ksmall = args.ksmall if args.kmax else 0
     rc = RasterConfig(tile=16, compact=args.compact, kmax=args.kmax, chunk=256,
-                      ksmall=args.ksmall,
-                      nlarge=args.nlarge if args.ksmall else 0)
+                      ksmall=ksmall, nlarge=args.nlarge if ksmall else 0)
     trainer = Trainer(mc, oc, rc, width=cam.width, height=cam.height,
                       device=args.device)
     trainer.scene.add_camera(cam)

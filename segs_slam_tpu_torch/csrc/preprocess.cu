@@ -14,7 +14,8 @@
 //   cov3d from scales * scale_modifier and the (w, x, y, z) quaternion; the
 //   view and clip transforms, mean2d and depth; the EWA cov2d with the
 //   1.3 tan_fov clamp and the +0.3 low-pass; det and conic; the radius; the
-//   tile rect, its kmax shrink around the centre and tiles_touched; the
+//   tile rect, its kmax shrink around the centre (none at kmax 0, the exact
+//   binning) and tiles_touched; the
 //   validity (depth > near, det != 0, valid_in, touched > 0); and the count
 //   of valid footprints shrunk to kmax (one atomicAdd a block).
 // Two entries: segs_preprocess_mask writes radius > 0 alone, one byte a
@@ -267,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
                  (p.valid_in == nullptr || p.valid_in[i]);
 
     // the tile rect (auxiliary.h getRect), then at most kmax tiles around
-    // the centre
+    // the centre; kmax 0 (the exact binning) keeps the rect whole
     const float gx = static_cast<float>(p.tiles_x);
     const float gy = static_cast<float>(p.tiles_y);
     int min_x = to_int32(clamp(floorf(mul(sub(px, r), p.inv_tile)), 0.0f, gx));
@@ -278,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
     int max_x = to_int32(clamp(floorf(mul(ex, p.inv_tile)), 0.0f, gx));
     int max_y = to_int32(clamp(floorf(mul(ey, p.inv_tile)), 0.0f, gy));
     const int w = max_x - min_x, h = max_y - min_y;
-    const bool over = w * h > p.kmax;
+    const bool over = p.kmax > 0 && w * h > p.kmax;
     if (over) {
       const float ratio =
           __fsqrt_rn(mul(__fdiv_rn(1.0f, clamp_lo(static_cast<float>(w * h),

@@ -134,7 +134,8 @@ class EvalRenderer:
     """The eval render of a map: decode + project + the packed eval blend
     (binned_blend_eval, kernel K3), without gradients. Where the packed
     layouts do not fit the config (tiles other than 16 px, over 63 tile
-    columns, kmax over 31), or with packed=False, it renders through the
+    columns, kmax over 31 or the exact binning's 0), or with packed=False,
+    it renders through the
     f32 training blend (binned_blend, kernel K1), as the JAX class does.
 
     The JAX class fuses the whole render into one jit to save the TPU's
@@ -152,7 +153,7 @@ class EvalRenderer:
                                   device=self.device).reshape(3)
         rc = raster_config
         self.packed = (packed and rc.tile == 16 and rc.grid(width, height)[0]
-                       <= 63 and rc.kmax <= 31)
+                       <= 63 and 0 < rc.kmax <= 31)
 
     def render_with_counts(self, anchors: AnchorState, decoders: Decoders,
                            cam: dict) -> dict:

@@ -17,8 +17,10 @@ arrays. The f32 (training) binning:
      bits), i.e. lax.sort's (tile, depth) order with ties in expansion order;
   4. tile ranges by searchsorted.
 
-The packed binnings (below `DEPTH_KEY_BITS`), the eval one and the
-training one (`expand_and_sort_packed_train`), are described there.
+The exact binning (`bin_exact`, RasterConfig.exact) keeps every alive
+gaussian and every tile of its rect, with neither step 1's cap nor the
+kmax clamp. The packed binnings (below `DEPTH_KEY_BITS`), the eval one and
+the training one (`expand_and_sort_packed_train`), are described there.
 """
 
 from __future__ import annotations
@@ -167,6 +169,55 @@ def expand_and_sort(cg: CompactGaussians, num_tiles_x: int, num_tiles_y: int,
         num_instances=num_instances,
         num_large=num_large,
     )
+
+
+def bin_exact(feats: torch.Tensor, aux: dict, num_tiles_x: int,
+              num_tiles_y: int) -> tuple[BinnedInstances, torch.Tensor]:
+    """The published rasterizer's binning (RasterConfig.exact; reference:
+    rasterizer_impl.cu duplicateWithKeys + identifyTileRanges): every alive
+    gaussian with a finite opacity, one (tile, depth) key for every tile of
+    its whole rect. Count, exclusive scan, emit, one stable sort, tile
+    ranges: as many pairs as the view has, ties in (gaussian, tile) order.
+    The pair count is read on the host once, to size the emit.
+
+    feats and aux as `compact_gaussians`. Returns (BinnedInstances with
+    gid_sorted the rows' own indices into [N] and num_large 0, num_valid:
+    the gaussians binned)."""
+    num_tiles = num_tiles_x * num_tiles_y
+    dev = feats.device
+    alive = aux["alive"] & torch.isfinite(feats[5])
+    touched = torch.where(alive, aux["touched"], 0).to(torch.int64)
+    rows = torch.nonzero(touched).squeeze(1)
+    counts = touched[rows]
+    num_instances = counts.sum(dtype=torch.int32)
+    total = int(num_instances)
+    ends = torch.cumsum(counts, 0)
+    # each pair's gaussian and its slot k in the gaussian's rect, row-major
+    gid = torch.repeat_interleave(rows, counts, output_size=total)
+    k = torch.arange(total, device=dev) - torch.repeat_interleave(
+        ends - counts, counts, output_size=total)
+    rw = torch.clamp(aux["rect_w"], min=1).to(torch.int64)[gid]
+    dy = torch.div(k, rw, rounding_mode="floor")
+    tile = ((aux["rect_min_y"].to(torch.int64)[gid] + dy) * num_tiles_x
+            + aux["rect_min_x"].to(torch.int64)[gid] + (k - dy * rw))
+    depth = aux["depth"][gid]
+    key = (tile << 32) | depth_order_key(depth)
+    key_sorted, order = torch.sort(key, stable=True)
+    gid_sorted = gid[order]
+    feats_sorted = torch.cat([feats[:, gid_sorted], depth[order][None]])
+    tiles = torch.arange(num_tiles, dtype=torch.int64, device=dev)
+    tile_sorted = key_sorted >> 32
+    binned = BinnedInstances(
+        feats_sorted=feats_sorted,
+        gid_sorted=gid_sorted.to(torch.int32),
+        tile_start=torch.searchsorted(tile_sorted, tiles,
+                                      side="left").to(torch.int32),
+        tile_stop=torch.searchsorted(tile_sorted, tiles,
+                                     side="right").to(torch.int32),
+        num_instances=num_instances,
+        num_large=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return binned, alive.sum(dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from segs_slam_tpu_torch.ops.rasterizer.binning import (
     _f16_from_bits,
     as_u32_bits,
     bin_eval_direct,
+    bin_exact,
     compact_gaussians,
     compact_gaussians_packed,
     expand_and_sort,
@@ -526,57 +527,72 @@ def uses_packed_train(config: RasterConfig, tiles_x: int) -> bool:
     """Whether the training blend bins through the packed sorts: the JAX
     `_binned_blend_fwd`'s gate (blend.py:962-964). packed_train on, 16 px
     tiles, at most 63 tile columns, kmax <= 31 and compact <= 2^16; else
-    the f32 binning, as in JAX."""
+    the f32 binning, as in JAX. The exact binning refuses packed_train
+    (RasterConfig's checks)."""
     return (config.packed_train and config.tile == 16 and tiles_x <= 63
             and config.kmax <= 31 and config.compact <= 1 << 16)
 
 
-# training blends by binning ("packed" or "f32"), read by chip_smoke.py
-train_binnings = {"packed": 0, "f32": 0}
+# training blends by binning ("packed", "f32" or "exact"), read by
+# chip_smoke.py
+train_binnings = {"packed": 0, "f32": 0, "exact": 0}
 
 
-def _count_compact_dropped(num_compact: torch.Tensor,
-                           config: RasterConfig) -> None:
+def _count_binning(num_instances: torch.Tensor, num_compact: torch.Tensor,
+                   config: RasterConfig) -> None:
     """While tracing: the visible gaussians beyond the static `compact`
-    capacity, which the binning dropped (a device tensor, not waited
-    for)."""
-    if tracing.enabled():
+    capacity, which the binning dropped; the exact binning drops none and
+    counts its pairs and the gaussians it binned (device tensors, not
+    waited for)."""
+    if not tracing.enabled():
+        return
+    if config.exact:
+        tracing.count("render.pairs", num_instances)
+        tracing.count("render.binned_gaussians", num_compact)
+        tracing.count("render.compact_dropped", 0)
+    else:
         tracing.count("render.compact_dropped",
                       torch.clamp(num_compact - config.compact, min=0))
 
 
 class _BinnedBlend(torch.autograd.Function):
     """Compaction + expansion + sort (the f32 or the packed training
-    binning) + K1 forward; K2 + the gradient routing of the JAX
-    `_binned_blend_bwd` backward."""
+    binning), or the exact binning, + K1 forward; K2 + the gradient routing
+    of the JAX `_binned_blend_bwd` backward."""
 
     @staticmethod
     def forward(ctx, feats, depth, bg, aux, config, tiles_x, tiles_y):
         aux = dict(aux, depth=depth)
         with tracing.span("render.binning"):
-            if uses_packed_train(config, tiles_x):
-                cg = compact_gaussians_packed(feats, aux, config,
-                                              with_orig=True)
-                binned = expand_and_sort_packed_train(cg, tiles_x, tiles_y,
-                                                      config)
-                train_binnings["packed"] += 1
+            if config.exact:
+                binned, num_valid = bin_exact(feats, aux, tiles_x, tiles_y)
+                orig_id = valid = None
+                train_binnings["exact"] += 1
             else:
-                cg = compact_gaussians(feats, aux, config)
-                binned = expand_and_sort(cg, tiles_x, tiles_y, config)
-                train_binnings["f32"] += 1
-        _count_compact_dropped(cg.num_valid, config)
+                if uses_packed_train(config, tiles_x):
+                    cg = compact_gaussians_packed(feats, aux, config,
+                                                  with_orig=True)
+                    binned = expand_and_sort_packed_train(cg, tiles_x,
+                                                          tiles_y, config)
+                    train_binnings["packed"] += 1
+                else:
+                    cg = compact_gaussians(feats, aux, config)
+                    binned = expand_and_sort(cg, tiles_x, tiles_y, config)
+                    train_binnings["f32"] += 1
+                num_valid, orig_id, valid = cg.num_valid, cg.orig_id, cg.valid
+        _count_binning(binned.num_instances, num_valid, config)
         with tracing.span("render.blend"):
             color, final_t, depth_img, ncontrib = blend_forward(
                 binned.feats_sorted, binned.tile_start, binned.tile_stop, bg,
                 tiles_x, config)
         ctx.mark_non_differentiable(ncontrib, binned.num_instances,
-                                    cg.num_valid)
+                                    num_valid)
         ctx.save_for_backward(binned.feats_sorted, binned.tile_start,
-                              binned.tile_stop, binned.gid_sorted, cg.orig_id,
-                              cg.valid, bg, final_t, ncontrib)
+                              binned.tile_stop, binned.gid_sorted, orig_id,
+                              valid, bg, final_t, ncontrib)
         ctx.config, ctx.tiles_x, ctx.n = config, tiles_x, feats.shape[1]
         return (color, final_t, depth_img, ncontrib, binned.num_instances,
-                cg.num_valid)
+                num_valid)
 
     @staticmethod
     def backward(ctx, dcolor, dfinal_t, ddepth, *_):
@@ -588,19 +604,26 @@ class _BinnedBlend(torch.autograd.Function):
                                    ctx.tiles_x, config, dcolor, ddepth,
                                    dfinal_t, final_t, ncontrib)  # [10, NK]
             dev = dinst.device
-            # segment-sum of the instance columns into their compact
-            # gaussians, masked to the valid ones, then scattered back
-            # through the compaction (unique destinations; invalid rows go
-            # to a dropped row)
-            dcompact = torch.zeros((config.compact, NFEAT),
-                                   dtype=torch.float32, device=dev)
-            dcompact.index_add_(0, gid_sorted.long(), dinst.T)
-            dcompact = torch.where(valid[:, None], dcompact, 0.0)
-            dorig = torch.zeros((n + 1, NFEAT), dtype=torch.float32,
-                                device=dev)
-            dorig.index_add_(0, torch.where(valid, orig_id, n).long(),
-                             dcompact)
-            dorig = dorig[:n]
+            if config.exact:
+                # the exact binning's instances name their gaussians' own
+                # rows: one segment-sum
+                dorig = torch.zeros((n, NFEAT), dtype=torch.float32,
+                                    device=dev)
+                dorig.index_add_(0, gid_sorted.long(), dinst.T)
+            else:
+                # segment-sum of the instance columns into their compact
+                # gaussians, masked to the valid ones, then scattered back
+                # through the compaction (unique destinations; invalid rows
+                # go to a dropped row)
+                dcompact = torch.zeros((config.compact, NFEAT),
+                                       dtype=torch.float32, device=dev)
+                dcompact.index_add_(0, gid_sorted.long(), dinst.T)
+                dcompact = torch.where(valid[:, None], dcompact, 0.0)
+                dorig = torch.zeros((n + 1, NFEAT), dtype=torch.float32,
+                                    device=dev)
+                dorig.index_add_(0, torch.where(valid, orig_id, n).long(),
+                                 dcompact)
+                dorig = dorig[:n]
             dbg = (final_t * dcolor).sum(dim=(0, 2))
         return (dorig[:, :NPAY].T, dorig[:, NPAY], dbg, None, None, None,
                 None)
@@ -616,7 +639,10 @@ def binned_blend(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     alive (bool), each (N,); only depth carries a gradient (the
     expected-depth cotangent flows back through it). bg: (3,).
     With config.packed_train, the binning is the packed one where
-    `uses_packed_train` allows it (JAX's own gate), else the f32 one.
+    `uses_packed_train` allows it (JAX's own gate), else the f32 one; with
+    config.exact, the exact binning (no cap, no clamp), which counts its
+    pairs and gaussians (`render.pairs`, `render.binned_gaussians`) while
+    tracing.
     Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
     n_contrib [nt,1,P] int32, num_instances, num_compact)."""
     if config.sel_direct or config.pack8:
@@ -640,6 +666,9 @@ def binned_blend_eval(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     num_instances, num_compact): the eval kernels compute no final_T, depth
     or n_contrib image (JAX returns zeros there)."""
     bg = bg.to(torch.float32)
+    if config.exact:
+        raise ValueError("the exact binning has no packed eval layout; "
+                         "render through binned_blend")
     if config.sel_direct and not packed_kernel:
         raise ValueError("the sel_direct binning feeds the packed kernel "
                          "only")
@@ -654,7 +683,7 @@ def binned_blend_eval(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
                 cols, start, stop, num_instances, _ = expand_and_sort_packed(
                     pc, tiles_x, tiles_y, config, return_packed=packed_kernel)
                 num_compact = pc.num_valid
-        _count_compact_dropped(num_compact, config)
+        _count_binning(num_instances, num_compact, config)
         with tracing.span("render.blend"):
             if packed_kernel:
                 color = blend_forward_eval_packed(as_u32_bits(cols), start,

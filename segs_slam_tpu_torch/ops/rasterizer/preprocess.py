@@ -33,6 +33,12 @@ class RasterConfig:
     along the K axis and only the kanchor first survive into the packed
     eval binning's global sort (binning.py:_kanchor_rows); lossless
     whenever no anchor has more than kanchor alive offsets.
+
+    compact = kmax = 0 (`exact`) is the published rasterizer's binning: no
+    compaction cap and no footprint clamp, every alive gaussian keyed to
+    every tile of its rect (binning.py:bin_exact). It takes no tiers,
+    packing or pre-compaction; the training and the eval blend both take
+    it, through the f32 rows and kernels K1 / K2.
     """
 
     tile: int = 16
@@ -54,6 +60,14 @@ class RasterConfig:
     packed_train: bool = False
 
     def __post_init__(self):
+        if (self.compact == 0) != (self.kmax == 0):
+            raise ValueError("compact and kmax are 0 together (the exact "
+                             "binning) or neither")
+        if self.exact and (self.ksmall or self.nlarge or self.nmid
+                           or self.kanchor or self.sel_direct or self.pack8
+                           or self.packed_train):
+            raise ValueError("the exact binning (compact = kmax = 0) takes "
+                             "no tiers, packing or pre-compaction")
         if self.nmid:
             if not self.ksmall:
                 raise ValueError("nmid > 0 requires ksmall > 0")
@@ -76,6 +90,11 @@ class RasterConfig:
             raise ValueError("pack8 is implemented on the sel_direct eval "
                              "path only")
 
+    @property
+    def exact(self) -> bool:
+        """No compaction cap and no footprint clamp (compact = kmax = 0)."""
+        return self.kmax == 0
+
     def grid(self, width: int, height: int) -> tuple[int, int]:
         tx = (width + self.tile - 1) // self.tile
         ty = (height + self.tile - 1) // self.tile
@@ -87,7 +106,7 @@ class RasterConfig:
         byte-packed colours (sel_direct + pack8), with nmid = compact / 8 and
         nlarge = compact / 32 as floors. Returns self unchanged where the
         packed layouts do not fit: tiles other than 16 px, a grid over 63x31
-        tiles, or kmax outside 6..31."""
+        tiles, or kmax outside 6..31 (the exact binning's 0 among them)."""
         tx, ty = self.grid(width, height)
         if (self.tile != 16 or tx > 63 or ty > 31 or self.kmax > 31
                 or self.kmax < 6):
@@ -282,10 +301,11 @@ def preprocess_gaussians(
 
     # Static-shape divergence from the reference, kept from the JAX version:
     # each rect is clamped to at most kmax tiles, shrunk around the projected
-    # centre. Exact whenever w * h <= kmax.
+    # centre. Exact whenever w * h <= kmax; the exact binning (kmax 0)
+    # shrinks none.
     w = rect_max_x - rect_min_x
     h = rect_max_y - rect_min_y
-    over = (w * h) > config.kmax
+    over = ((w * h) > config.kmax) & (config.kmax > 0)
     ratio = torch.sqrt(config.kmax / torch.clamp((w * h).float(), min=1.0))
     w2 = torch.clamp(to_int32(w.float() * ratio), min=1)
     w2 = torch.clamp(w2, max=config.kmax)

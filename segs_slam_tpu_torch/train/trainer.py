@@ -485,7 +485,8 @@ class Trainer:
         beyond RasterConfig.compact are dropped with their gradients;
         footprints beyond kmax tiles are shrunk."""
         nc = mm.get("num_compact")
-        if nc is not None and nc > self.raster_config.compact:
+        if nc is not None and not self.raster_config.exact \
+                and nc > self.raster_config.compact:
             log_fn(f"WARNING: {int(nc)} visible gaussians exceed the "
                    f"compaction capacity {self.raster_config.compact}; "
                    "overflow is dropped (raise RasterConfig.compact)")
