@@ -6,9 +6,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints the card's name and power
      limit and the torch / CUDA / nvcc versions;
   2. build: compiles kernels K1 (csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu),
-     K3 + K4 (csrc/blend_eval.cu) and K5 (csrc/preprocess.cu) from this
-     checkout, one nvcc each, in parallel; prints ptxas registers and
-     spills;
+     K3 + K4 (csrc/blend_eval.cu), K5 (csrc/preprocess.cu) and K6
+     (csrc/preprocess_bwd.cu) from this checkout, one nvcc each, in
+     parallel; prints ptxas registers and spills;
   3. kernels: on a full-size 640x480 view of a seeded full-width map, K1
      against its plain PyTorch version on the same binned input (n_contrib
      equal on >= 99.99 % of pixels; there, colour and final_T within 2e-4
@@ -30,7 +30,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      compute_cov3d + preprocess_gaussians + blend_inputs, every output bit
      for bit (NaN as NaN); each entry's device time, call time, host time
      and byte bound (42 and 126 B a gaussian), and the chain's device time,
-     device operations and host time;
+     device operations and host time. Then K6, the projection's backward,
+     on the full entry's 655,360 gaussians and on those tiled 16 times
+     (10,485,760, the garden's slots; where the card's memory holds the
+     chain's graph) with seeded cotangents on the alive slots (the blend
+     backward's): its gradients of the means, scales and rotations, and in
+     pose refinement's variant of the camera too, against the chain's
+     autograd gradients (tools/preprocess_ab.k6_holds: finite within 2e-4
+     of each input's largest and of each alive gaussian's own, bar a 1e-3
+     share of gaussians held within 1e-2; non-finite where the chain's
+     are), the rule refusing a planted fault (the gradient halved beyond
+     depth 1); its device, call and host time and byte bound (104 B a
+     gaussian) as the main path launches it and with the camera's
+     gradient, and the chain's backward's device time, device operations
+     and host time;
   4. render path: the map rendered by the render_views app (8 orbit views
      at 480x480, calibrate_eval_config + EvalRenderer); images finite, in
      [0, 1] and not blank, K3 launched once per view and no other blend
@@ -43,8 +56,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      iterations with the frequency losses; the loss finite throughout and
      lower at the end than at the start, the evaluate PSNR at least 3 dB
      above the untrained map's, K2 launched once per iteration and K3 once
-     per keyframe in each of the two evaluations, K5 at least once an
-     iteration (the prefilter; the training projection keeps the chain);
+     per keyframe in each of the two evaluations, K5 at least twice an
+     iteration (the prefilter and the training projection) and K6 exactly
+     once (the projection's backward);
   6. trained map: a second Trainer built with the same flags. Inside the
      frequency-loss window, the step's layers (inputs, forward, loss,
      backward, stats, Adam, metrics: the train_step.* spans of
@@ -72,8 +86,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      capacity 2^16, packed_train auto) for 1,700 iterations: mapping
      ms/iter and iters/s (host clock around Mapper.run to a synchronised
      device), device time and busy share over a profiler window of 20
-     mapper iterations, K1/K2/K3/K5 launches (K5 exactly once in every
-     training iteration: the prefilter), the training binning (must be
+     mapper iterations, K1/K2/K3/K5/K6 launches (K5 twice and K6 once in
+     every training iteration: the prefilter and the projection, and the
+     projection's backward), the training binning (must be
      the packed one), active anchors, densification adjusts (must be 2),
      record_all_keyframes' PSNR, SSIM, L1 and render FPS read back by the
      harness, ATE against groundtruth.txt (at most 1e-3 m). K1 and K2
@@ -166,8 +181,8 @@ WORK = ROOT / "build" / "chip_smoke"
 SEED = 0
 N_VIEWS = 8
 TRAIN_ITERS = 300
-LIBRARIES = ("blend_fwd", "blend_bwd", "blend_eval",
-             "preprocess")  # csrc/<name>.cu
+LIBRARIES = ("blend_fwd", "blend_bwd", "blend_eval", "preprocess",
+             "preprocess_bwd")  # csrc/<name>.cu
 # the kernels line's entries: (source, TPU kernel replaced)
 KERNELS = {
     "blend_fwd": ("segs_slam_tpu_torch/csrc/blend_fwd.cu",
@@ -178,8 +193,10 @@ KERNELS = {
                           "segs_slam_tpu/ops/rasterizer/blend.py:252"),
     "blend_eval": ("segs_slam_tpu_torch/csrc/blend_eval.cu",
                    "segs_slam_tpu/ops/rasterizer/blend.py:720"),
-    # no Pallas kernel: XLA fuses the jnp preprocess inside its jit
+    # no Pallas kernel: XLA fuses the jnp preprocess and its VJP inside
+    # its jit
     "preprocess": ("segs_slam_tpu_torch/csrc/preprocess.cu", "none"),
+    "preprocess_bwd": ("segs_slam_tpu_torch/csrc/preprocess_bwd.cu", "none"),
 }
 # the tile-blend kernels, which the rankings compare
 BLEND_KERNELS = ("blend_fwd", "blend_bwd", "blend_eval_packed", "blend_eval")
@@ -189,7 +206,8 @@ KERNEL_FUNCS = {"blend_fwd": "blend_fwd_kernel",
                 "blend_bwd": "blend_bwd_kernel",
                 "blend_eval_packed": "blend_eval_kernel",
                 "blend_eval": "blend_eval_kernel",
-                "preprocess": "preprocess_kernel"}
+                "preprocess": "preprocess_kernel",
+                "preprocess_bwd": "preprocess_bwd_kernel"}
 DEVICE_REPS = 20  # recorded launches an input for a kernel's device ms
 
 TRAINED_STEPS = 24
@@ -473,7 +491,8 @@ def launch_counters():
             "blend_bwd": blend.blend_backward_cuda,
             "blend_eval_packed": blend.blend_forward_eval_packed_cuda,
             "blend_eval": blend.blend_forward_eval_cuda,
-            "preprocess": rasterize.preprocess_cuda}
+            "preprocess": rasterize.preprocess_cuda,
+            "preprocess_bwd": rasterize.preprocess_backward_cuda}
 
 
 def blend_launches(launches: dict) -> dict:
@@ -526,8 +545,8 @@ def phase_build():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
-    print(f"[build] K1, K2, K3 + K4, K5 in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"[build] K1, K2, K3 + K4, K5, K6 in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_kernels(anchors, decoders, mc, rc, dev):
@@ -792,13 +811,16 @@ def phase_eval_kernels(anchors, decoders, mc, rc, dev) -> dict:
             for name, r in results.items()}
 
 
-def phase_preprocess_kernel(anchors, decoders, mc, rc, dev) -> dict:
+def phase_preprocess_kernel(anchors, decoders, mc, rc, dev):
     """K5's two entries against the eager chain on the kernel phase's
     640x480 view at the main path's shapes (the anchor prefilter's mask
     over every anchor slot, the projection over every gaussian slot), every
     output bit for bit; their times beside the chain's (see
-    tools/preprocess_ab.py). Returns the kernels line's entry: the full
-    entry's numbers, the mask's and the chain's under "entries"."""
+    tools/preprocess_ab.py). Then K6 against the chain's autograd gradient
+    on the projection's slots and on them tiled to the garden's 2^20 x 10,
+    its times beside the chain backward's. Returns the kernels line's
+    entries (K5, K6): the full entry's and the view's numbers, the mask's,
+    the garden size's and the chain's under "entries"."""
     from types import SimpleNamespace
 
     from segs_slam_tpu_torch.core import Camera, Keyframe
@@ -833,9 +855,54 @@ def phase_preprocess_kernel(anchors, decoders, mc, rc, dev) -> dict:
     if not (visible and alive):
         fail("the K5 view saw no anchor or no gaussian")
     full = nums["full"]
-    return {"ms": full["ms"], "call_ms": full["call_ms"],
-            "bound_ms": full["bound_ms"], "bound_by": "bytes",
-            "entries": nums}
+    k5 = {"ms": full["ms"], "call_ms": full["call_ms"],
+          "bound_ms": full["bound_ms"], "bound_by": "bytes",
+          "entries": nums}
+
+    # K6 at the view's slots, then at the garden's: the view's inputs
+    # tiled 16 times (the chain's graph there holds some 20 GB)
+    tiled = tuple(torch.cat([a] * 16) if isinstance(a, torch.Tensor)
+                  and a.dim() and a.shape[0] == full_args[0].shape[0]
+                  else a for a in full_args)
+    k6 = {}
+    for size, args in (("view", full_args), ("garden", tiled)):
+        try:
+            gaps = {variant: preprocess_ab.k6_differences(args, camera=cam)
+                    for variant, cam in (("main", False), ("camera", True))}
+            r = preprocess_ab.k6_numbers(args)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[preprocess] K6 at {args[0].shape[0]} gaussians: not "
+                  f"measured, the chain's graph does not fit ({e})",
+                  flush=True)
+            torch.cuda.empty_cache()
+            continue
+        ch, cam = r["chain"], r["camera"]
+        print(f"[preprocess] K6, {r['gaussians']} gaussians: device "
+              f"{r['ms']:.4f} ms (profiler, mean of {DEVICE_REPS}+), call "
+              f"{r['call_ms']:.4f} ms, host {r['host_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms (bytes); with the camera's gradient "
+              f"(both kernels) device {cam['ms']:.4f} ms, call "
+              f"{cam['call_ms']:.4f} ms, bound {cam['bound_ms']:.5f} ms; "
+              f"the chain's backward: device {ch['device_ms']:.4f} ms in "
+              f"{ch['device_ops']:.0f} device operations, host "
+              f"{ch['host_ms']:.3f} ms; against its gradients {gaps}",
+              flush=True)
+        strays = {f"{variant}.{name}": g for variant, d in gaps.items()
+                  for name, g in d.items() if not g["holds"]}
+        if strays:
+            fail(f"K6 strays from the chain's gradients: {strays}")
+        passed = [f"{variant}.{name}" for variant, d in gaps.items()
+                  for name, g in d.items()
+                  if not g.get("fault_refused", True)]
+        if passed:
+            fail(f"the gradient rule lets a planted fault (halved beyond "
+                 f"depth 1) pass in {passed}")
+        k6[size] = dict(r, differences=gaps)
+        torch.cuda.empty_cache()
+    view = k6["view"]
+    return k5, {"ms": view["ms"], "call_ms": view["call_ms"],
+                "bound_ms": view["bound_ms"], "bound_by": "bytes",
+                "entries": k6}
 
 
 def live_and_large(anchors, decoders, mc, rc, cam, w, h):
@@ -1001,11 +1068,13 @@ def phase_train_path():
     # per iteration; K3: the untrained and the final evaluate
     want = {"blend_fwd": n_views + TRAIN_ITERS, "blend_bwd": TRAIN_ITERS,
             "blend_eval_packed": 2 * n_views, "blend_eval": 0}
-    # K5: each step's prefilter, and the renders outside the steps
+    # K5: each step's prefilter and projection, and the renders outside
+    # the steps; K6: each step's backward
     if blend_launches(launches) != want \
-            or launches["preprocess"] < TRAIN_ITERS:
-        fail(f"launches {launches}, expected {want} and K5 at least once "
-             f"an iteration")
+            or launches["preprocess"] < 2 * TRAIN_ITERS \
+            or launches["preprocess_bwd"] != TRAIN_ITERS:
+        fail(f"launches {launches}, expected {want}, K5 at least twice "
+             f"and K6 once an iteration")
     return launches
 
 
@@ -1501,7 +1570,8 @@ class SlamProbe:
     def __init__(self, dev, window=None, capture=None):
         self.dev, self.window, self.capture = dev, window, capture
         self.losses, self.gains, self.captured = [], [], []
-        self.k5_per_iter: list = []  # K5 launches in each iteration trained
+        # (K5, K6) launches in each iteration trained
+        self.k5_per_iter: list = []
         self.sizes: dict = {}
         self.adjusts = 0
         self.window_stats = None
@@ -1524,13 +1594,15 @@ class SlamProbe:
                 probe._start_window()
             probe._capturing = bool(probe.capture) and (
                 probe.capture[0] <= it < sum(probe.capture))
-            k5 = launch_counters()["preprocess"]
-            before = k5.launches
+            counters = [launch_counters()[k]
+                        for k in ("preprocess", "preprocess_bwd")]
+            before = [c.launches for c in counters]
             m = iterate(trainer)
             probe._capturing = False
             if m is not None:
                 probe.losses.append(m["loss"])
-                probe.k5_per_iter.append(k5.launches - before)
+                probe.k5_per_iter.append(tuple(
+                    c.launches - b for c, b in zip(counters, before)))
             if probe.window and it == sum(probe.window) - 1:
                 probe._stop_window()
             return m
@@ -1704,12 +1776,12 @@ def slam_run_a(seq: Path, dev) -> dict:
             and launches["blend_bwd"] == SLAM_ITERS
             and launches["blend_eval_packed"] >= n_kf):
         fail(f"run A launched {launches}")
-    # K5: the prefilter of each step (its projection asks for gradients)
+    # K5: the prefilter and the projection of each step; K6: its backward
     k5 = sorted(set(probe.k5_per_iter))
-    print(f"[slam] run A: K5 launches an iteration {k5} over "
+    print(f"[slam] run A: (K5, K6) launches an iteration {k5} over "
           f"{len(probe.k5_per_iter)} iterations", flush=True)
-    if k5 != [1] or len(probe.k5_per_iter) != SLAM_ITERS:
-        fail(f"run A's iterations launched K5 {k5} times each")
+    if k5 != [(2, 1)] or len(probe.k5_per_iter) != SLAM_ITERS:
+        fail(f"run A's iterations launched (K5, K6) {k5} times each")
     if not run.get("ate_rmse", np.inf) <= 1e-3:
         fail(f"run A's ATE {run.get('ate_rmse')} m is above 1e-3 m")
     if not all(np.isfinite(run.get(k, np.nan))
@@ -2820,13 +2892,14 @@ def main():
     evals = phase_eval_kernels(anchors, decoders, mc, rc, dev)
     at_640["blend_eval_packed"] = evals["K3 pack8"]
     at_640["blend_eval"] = evals["K4"]
-    k5 = phase_preprocess_kernel(anchors, decoders, mc, rc, dev)
+    k5, k6 = phase_preprocess_kernel(anchors, decoders, mc, rc, dev)
     del anchors, decoders
     phase_render_path(map_path, rc, mc)
     launches = phase_train_path()
     kernels = phase_trained()
     kernels["blend_eval"] = dict(evals["K4"], library_ms=None)
     kernels["preprocess"] = k5
+    kernels["preprocess_bwd"] = k6
     phase_densify()
     phase_small_input(dev)
     print_ranking(launches, kernels, at_640)
@@ -2840,7 +2913,7 @@ def main():
     # each path's counts beside them; K1 and K2 numbers from run A's
     # packed-binning steps (phase 9), with those on train_colmap's and
     # slam_stereo's own steps (phase 10) under numbers_by_path; K3's from
-    # the trained map (phase 6), K4's and K5's from the 640x480 view
+    # the trained map (phase 6), K4's, K5's and K6's from the 640x480 view
     # (phase 3)
     kernels.update(slam["kernels"])
     for name in ("blend_fwd", "blend_bwd"):

@@ -1,5 +1,5 @@
-// K5: the projection preprocess where no gradient is needed, hand-written
-// for Hopper (sm_90a).
+// K5: the projection preprocess, hand-written for Hopper (sm_90a); K6
+// (preprocess_bwd.cu) is its backward.
 //
 // Replaces no Pallas kernel. The JAX package computes the preprocess
 // (segs_slam_tpu/ops/rasterizer/preprocess.py: compute_cov3d +
@@ -22,8 +22,8 @@
 // gaussian (the anchor prefilter, visible_filter); segs_preprocess writes
 // the blend's rows [9, n] (mean2d + offset, conic, opacity, colour), depth,
 // the int32 rows (radius, rect_min x/y, rect_max x/y, tiles_touched,
-// rect_w), the alive bytes and the count (rasterize.project under no
-// gradient).
+// rect_w), the alive bytes and the count (rasterize.project on the card,
+// the forward of its autograd.Function).
 //
 // Every output is the plain version's bit for bit on the card. Each
 // arithmetic step rounds once, as the torch op it mirrors rounds on the
@@ -58,28 +58,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// One rounding each, as the torch op.
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
+#include "preprocess_common.cuh"
+
 // `1.0 / t`: Tensor.reciprocal() * 1.0
 __device__ __forceinline__ float inv(float a) {
   return __fmul_rn(__fdiv_rn(1.0f, a), 1.0f);
 }
 
-// torch.maximum / torch.minimum: a NaN operand wins
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
 // torch.clamp with number bounds: NaN kept
 __device__ __forceinline__ float clamp_lo(float v, float lo) {
   return v != v ? v : fmaxf(v, lo);
@@ -101,18 +86,6 @@ __device__ __forceinline__ int to_int32(float x) {
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-// preprocess._away_from_zero
-__device__ __forceinline__ float away_from_zero(float v, float eps) {
-  return fabsf(v) < eps ? (v < 0.0f ? -eps : eps) : v;
-}
-
-// Column j of (x, y, z, 1) @ M, M row-major 4x4: preprocess._transform_rows
-__device__ __forceinline__ float transform(const float* m, int j, float x,
-                                           float y, float z) {
-  return add(add(add(mul(x, m[j]), mul(y, m[4 + j])), mul(z, m[8 + j])),
-             m[12 + j]);
 }
 
 struct Params {
@@ -158,15 +131,10 @@ __global__ void __launch_bounds__(kThreads)
   } else if (t < 32) {
     fpt[t - 16] = p.fpt[t - 16];
   } else if (t == 32 || t == 33) {
-    // focal = width / (2.0 * tan) and lim = 1.3 * tan: on a 0-d device
-    // tensor, 2.0 * tan, reciprocal, times width; tan * 1.3f
     const float* tan = t == 32 ? p.tan_x : p.tan_y;
-    const int size = t == 32 ? p.width : p.height;
     if (tan != nullptr) {
-      const float v = *tan;
-      cam[t - 32] =
-          mul(__fdiv_rn(1.0f, mul(v, 2.0f)), static_cast<float>(size));
-      cam[t - 30] = mul(v, 1.3f);
+      cam[t - 32] = focal_from_tan(*tan, t == 32 ? p.width : p.height);
+      cam[t - 30] = lim_from_tan(*tan);
     } else {
       cam[t - 32] = t == 32 ? p.focal_x : p.focal_y;
       cam[t - 30] = t == 32 ? p.lim_x : p.lim_y;

@@ -1,6 +1,7 @@
-"""Kernel K5 (csrc/preprocess.cu) against its plain twin, the eager chain
-compute_cov3d + preprocess_gaussians + blend_inputs, in one process on one
-card, on EvalRenderer's views of a seeded full-width map at the sizes of
+"""Kernels K5 (csrc/preprocess.cu) and K6 (csrc/preprocess_bwd.cu, its
+backward) against their plain twin, the eager chain compute_cov3d +
+preprocess_gaussians + blend_inputs (differentiated by autograd), in one
+process on one card, on EvalRenderer's views of a seeded full-width map at the sizes of
 both benchmark configurations:
 
   tum_rgbd      640x480, fx = fy = 525, embedding_dim 200
@@ -21,6 +22,16 @@ For each configuration:
             call ms (CUDA events around one wrapper call), the byte bound
             (42 B and 126 B a gaussian at 3.35 TB/s), the host ms of a call,
             and the eager chain's device ms, host ms and kernels a call;
+  backward  K6 on the first view's 655,360 gaussians with seeded cotangents
+            on the alive slots in the blend backward's [N, 10] layout: its
+            gradients of the means, scales and rotations (and, in pose
+            refinement's variant, of the camera) against the chain's
+            (`k6_gaps`: the largest gap over the chain's largest, each
+            alive gaussian's over its own, finiteness mismatches; whether
+            the rule refuses a planted fault), its device ms, call ms, host
+            ms and byte bound (104 B a gaussian) on the main path and in the
+            camera variant, and the chain's backward's device ms, host ms
+            and kernels a call;
   untraced  --blocks blocks of --views views a route, the routes
             alternating (the chain forced by replacing the route
             predicate), no profiler: the host ms a view of each part (the
@@ -37,7 +48,9 @@ For each configuration:
   images    every view's image through K5 and through the chain, bit for
             bit.
 Prints one JSON line, also written to --out; exits 1 if an image or a K5
-output differs from the chain's. Needs a card and nvcc.
+output differs from the chain's, or a K6 gradient strays from the chain's
+(`k6_holds`), or the rule lets the planted fault (`k6_fault`) pass. Needs a
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -73,6 +86,10 @@ HBM_BYTES_PER_S = 3.35e12
 # those and opacity and colour (57 B) and writes the nine blend rows,
 # depth, seven int32 rows and the alive byte (69 B)
 MASK_BYTES, FULL_BYTES = 42, 126
+# K6's: it reads the xyz, scale and quaternion rows (40 B) and six
+# cotangents (mean2d x / y, the conic, depth: 24 B) and writes the xyz,
+# scale and quaternion gradient rows (40 B)
+BWD_BYTES = 104
 SPANS = ("render.prefilter", "render.decode", "render.project",
          "render.binning", "render.blend")
 
@@ -281,6 +298,176 @@ def k5_numbers(mask_args, full_args) -> dict:
     return out
 
 
+# K6 against the chain (`k6_holds`): each input's gradient within K6_TOL of
+# its largest finite magnitude (the JAX suite's rule) and, where the gradient
+# is per gaussian, each alive gaussian held on its own: the largest
+# difference over its gradient's largest magnitude plus the median of that
+# over the alive gaussians (the median for a gaussian whose gradient cancels
+# to near zero), within K6_TOL on all but a K6_OUTLIERS share of them and
+# within K6_GAUSSIAN_TOL on every one. In f32 a gaussian whose terms cancel
+# (a rotation's gradient of a near-isotropic gaussian, the long axis's
+# scale) differs from the chain's by up to ~1e-3 of its own size.
+K6_TOL, K6_OUTLIERS, K6_GAUSSIAN_TOL = 2e-4, 1e-3, 1e-2
+# the inputs whose gradient K6 computes
+K6_INPUTS = ("means3d", "scales", "rotations", "world_view_transform",
+             "full_proj_transform", "tan_fovx", "tan_fovy")
+
+
+def k6_gaps(got: torch.Tensor, ref: torch.Tensor, alive=None) -> dict:
+    """K6's gradient `got` of one input against the chain's `ref`: {"gap":
+    the largest |got - ref| where both are finite over ref's largest finite
+    magnitude, "mismatched": elements finite in one and not the other,
+    "nonfinite": ref's non-finite elements}; for a gradient [N, k] of N
+    gaussians with their alive mask `alive` [N], also "gaussian_gap": the
+    largest over the alive gaussians of max_j |got - ref| / (max_j |ref| +
+    the median of max_j |ref| over the alive gaussians where it is not 0),
+    and "over_share": the share of alive gaussians whose ratio exceeds
+    K6_TOL."""
+    fin_g, fin_r = torch.isfinite(got), torch.isfinite(ref)
+    zero = torch.zeros_like(ref)
+    diff = torch.where(fin_g & fin_r, (got - ref).abs(), zero)
+    mag = torch.where(fin_r, ref.abs(), zero)
+    out = {"gap": float(diff.max()) / max(float(mag.max()), 1e-30)
+           if ref.numel() else 0.0,
+           "mismatched": int((fin_g != fin_r).sum()),
+           "nonfinite": int((~fin_r).sum())}
+    if alive is not None and ref.dim() == 2 \
+            and ref.shape[0] == alive.shape[0]:
+        err, size = diff.amax(1)[alive], mag.amax(1)[alive]
+        nonzero = size[size > 0]
+        floor = float(nonzero.median()) if nonzero.numel() else 0.0
+        ratio = err / (size + floor).clamp_min(1e-30)
+        out["gaussian_gap"] = float(ratio.max()) if ratio.numel() else 0.0
+        out["over_share"] = (float((ratio > K6_TOL).double().mean())
+                             if ratio.numel() else 0.0)
+    return out
+
+
+def k6_holds(gaps: dict) -> bool:
+    """Whether one input's `k6_gaps` meet the rule above."""
+    return (gaps["mismatched"] == 0 and gaps["gap"] <= K6_TOL
+            and gaps.get("gaussian_gap", 0.0) <= K6_GAUSSIAN_TOL
+            and gaps.get("over_share", 0.0) <= K6_OUTLIERS)
+
+
+def k6_fault(grad: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """A planted fault that `k6_holds` must refuse: the gradient [N, k]
+    halved on the gaussians deeper than 1 (view depth)."""
+    return torch.where((depth > 1)[:, None], grad * 0.5, grad)
+
+
+def k6_cotangents(n: int, device, seed: int = 0, alive=None):
+    """Seeded cotangents in the blend backward's [N, 10] layout, zero on
+    about half the slots and, with `alive`, on every slot not alive (the
+    blend backward's: only binned gaussians receive one): (the blend
+    rows' [NPAY, N] view, depth's)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = torch.randn(n, 10, generator=g, device=device)
+    rows[torch.rand(n, generator=g, device=device) < 0.5] = 0.0
+    if alive is not None:
+        rows[~alive] = 0.0
+    return rows[:, :9].T, rows[:, 9]
+
+
+def _graph(full_args, route: str, camera: bool = False):
+    """({name: leaf}, feats, aux) of project on K5's full arguments,
+    through K5 + K6 (route "kernel") or the chain; the leaves means3d,
+    scales, rotations and, with `camera`, the two matrices and the 0-d
+    tan_fov tensors."""
+    means, scales, quats, wvt, fpt, w, h, tx, ty, rc, valid, op, col = \
+        full_args
+    inputs = dict(zip(K6_INPUTS, (means, scales, quats, wvt, fpt, tx, ty)))
+    leaves = {k: t.detach().requires_grad_(True) for k, t in inputs.items()
+              if isinstance(t, torch.Tensor)
+              and (camera or k in K6_INPUTS[:3])}
+    x = dict(inputs, **leaves)
+    forced = chain_forced() if route == "chain" else contextlib.nullcontext()
+    with torch.enable_grad(), forced:
+        _, feats, aux = rasterize.project(
+            x["means3d"], x["scales"], x["rotations"], op, col,
+            x["world_view_transform"], x["full_proj_transform"], w, h,
+            x["tan_fovx"], x["tan_fovy"], rc, valid)
+    return leaves, feats, aux
+
+
+def k6_differences(full_args, seed: int = 0, camera: bool = False) -> dict:
+    """K6's gradients against the chain's for seeded cotangents on the
+    alive slots (`k6_cotangents`): of means3d, scales and rotations and,
+    with `camera`, of the camera (pose refinement's K6 variant), as
+    `k6_compare` gives them."""
+    kernel, chain_ = (_graph(full_args, route, camera)
+                      for route in ("kernel", "chain"))
+    alive, depth = kernel[2]["alive"], kernel[2]["depth"].detach()
+    cot = k6_cotangents(full_args[0].shape[0], full_args[0].device, seed,
+                        alive)
+    got, ref = (torch.autograd.grad([feats, aux["depth"]],
+                                    list(leaves.values()), cot)
+                for leaves, feats, aux in (kernel, chain_))
+    return k6_compare(kernel[0], got, ref, alive, depth)
+
+
+def k6_compare(names, got, ref, alive, depth) -> dict:
+    """{name: `k6_gaps` of K6's gradient against the chain's, with "holds"
+    (`k6_holds`) and, per gaussian, "fault_refused": whether `k6_holds`
+    refuses the gradient with `k6_fault` planted} over the inputs
+    `names`, their gradients `got` and `ref`, the alive mask and view
+    depth of the gaussians."""
+    out = {}
+    for name, a, b in zip(names, got, ref):
+        gaps = k6_gaps(a, b, alive)
+        gaps["holds"] = k6_holds(gaps)
+        if "gaussian_gap" in gaps:
+            gaps["fault_refused"] = not k6_holds(
+                k6_gaps(k6_fault(a, depth), b, alive))
+        out[name] = gaps
+    return out
+
+
+def k6_numbers(full_args) -> dict:
+    """K6's device ms, call ms, host ms and byte bound as the main path
+    launches it (no camera gradient), and under "camera" those of pose
+    refinement's variant (both of its kernels); the chain's backward's
+    device ms, device operations and host ms (its forward graph built
+    once, its backward repeated); on K5's full arguments, with `k6_differences`'
+    cotangents."""
+    from segs_slam_tpu_torch.utils.kernel_timing import device_ms, event_ms
+
+    means, scales, quats, wvt, fpt, w, h, tx, ty = full_args[:9]
+    n = means.shape[0]
+    leaves, feats, aux = _graph(full_args, "chain")
+    d_feats, d_depth = k6_cotangents(n, means.device, alive=aux["alive"])
+
+    def k6(camera=False):
+        return rasterize.preprocess_backward_cuda(
+            means, scales, quats, wvt, fpt, w, h, tx, ty, d_feats, d_depth,
+            needs=(True, True, True, camera))
+
+    def k6_camera():
+        return k6(True)
+
+    def plain():
+        return torch.autograd.grad([feats, aux["depth"]],
+                                   list(leaves.values()), [d_feats, d_depth],
+                                   retain_graph=True)
+
+    # the camera variant's block sums: 28 doubles a block, written and read
+    blocks = min(-(-n // 256), 4096)
+    camera_bytes = n * BWD_BYTES + 2 * 28 * 8 * blocks
+    dev_ms, ops = _chain_device(plain)
+    return {"gaussians": n,
+            "ms": device_ms([k6], "preprocess_bwd_kernel<false>"),
+            "call_ms": event_ms(k6, 20, 3), "host_ms": _host_ms(k6),
+            "bound_ms": n * BWD_BYTES / HBM_BYTES_PER_S * 1e3,
+            "camera": {
+                "ms": device_ms([k6_camera], "preprocess_bwd_kernel<true>")
+                + device_ms([k6_camera], "preprocess_bwd_camera"),
+                "call_ms": event_ms(k6_camera, 20, 3),
+                "host_ms": _host_ms(k6_camera),
+                "bound_ms": camera_bytes / HBM_BYTES_PER_S * 1e3},
+            "chain": {"device_ms": dev_ms, "device_ops": ops,
+                      "host_ms": _host_ms(plain)}}
+
+
 def _view(scene, cam, ms):
     """One view to its image on the host; adds the whole view's and the
     copy's host ms to `ms`."""
@@ -427,7 +614,11 @@ def run(name: str, views: int, blocks: int) -> dict:
     mask_args, full_args = k5_inputs(scene, scene.cams[0])
     res = {"size": [scene.w, scene.h],
            "differences": k5_differences(mask_args, full_args),
-           "kernel": k5_numbers(mask_args, full_args)}
+           "kernel": k5_numbers(mask_args, full_args),
+           "backward": {"differences": k6_differences(full_args),
+                        "camera_differences": k6_differences(
+                            full_args, camera=True),
+                        **k6_numbers(full_args)}}
     res["images_differ"], res["k5_launches_a_view"] = images_equal(scene)
     res["untraced"] = untraced(scene, blocks)
     res["traced"] = traced(scene)
@@ -452,9 +643,12 @@ def main(argv=None) -> dict:
     if args.out:
         Path(args.out).write_text(line + "\n")
     bad = [name for name, r in res["configs"].items()
-           if r["images_differ"] or any(r["differences"].values())]
+           if r["images_differ"] or any(r["differences"].values())
+           or not all(d["holds"] and d.get("fault_refused", True)
+                      for key in ("differences", "camera_differences")
+                      for d in r["backward"][key].values())]
     if bad:
-        print(f"preprocess_ab: K5 differs from the chain in {bad}",
+        print(f"preprocess_ab: K5 or K6 strays from the chain in {bad}",
               file=sys.stderr, flush=True)
         sys.exit(1)
     return res
