@@ -54,7 +54,7 @@ def add_common_args(p, default_compact=2**16, default_kmax=8):
                         "path (auto = on when kmax <= 31 and compact <= "
                         "2^16; the blend still takes the f32 binning where "
                         "the grid is wider than 63 tiles: "
-                        "blend.py:uses_packed_train)")
+                        "RasterConfig.train_binning)")
     p.add_argument("--model-set", action="append", default=[],
                    help="ModelConfig field override, e.g. "
                         "--model-set appearance_dim=0 (ablations)")
@@ -103,6 +103,27 @@ def _override(cfg, key: str, raw: str, flag: str, kind: str):
     return dataclasses.replace(cfg, **{key: val})
 
 
+def raster_config(args, kgroup: int, packed_train: str) -> RasterConfig:
+    """RasterConfig from --compact, --kmax, --ksmall, --nlarge, --kanchor
+    (0 where an app has none) and packed_train "on", "off" or "auto" (on
+    where the packed training binning takes the config on one tile; the
+    blend takes the f32 one on grids it does not fit). `--compact 0 --kmax
+    0` is the exact binning: no tiers, packing or pre-compaction."""
+    exact = args.compact == 0 and args.kmax == 0
+    ksmall = 0 if exact else args.ksmall
+    kanchor = 0 if exact else getattr(args, "kanchor", 0)
+    rc = RasterConfig(tile=16, compact=args.compact, kmax=args.kmax,
+                      chunk=256, ksmall=ksmall,
+                      nlarge=args.nlarge if ksmall else 0, kanchor=kanchor,
+                      kgroup=kgroup if kanchor else 0)
+    if exact or packed_train == "off":
+        return rc
+    packed = dataclasses.replace(rc, packed_train=True)
+    if packed_train == "on" or packed.train_binning(1, 1) == "packed":
+        return packed
+    return rc
+
+
 def resolve_configs(args, iters_budget: int, mapper_overrides: dict | None
                     = None):
     """(ModelConfig, OptimizationConfig, MapperConfig, RasterConfig,
@@ -143,16 +164,5 @@ def resolve_configs(args, iters_budget: int, mapper_overrides: dict | None
     for kv in getattr(args, "model_set", []):
         key, _, raw = kv.partition("=")
         mc = _override(mc, key, raw, "--model-set", "ModelConfig")
-    # the image size may not be known yet here, so "auto" gates on the
-    # static constraints only; the blend takes the f32 binning itself where
-    # the grid is wider (blend.py:uses_packed_train)
-    packed = (args.packed_train == "on"
-              or (args.packed_train == "auto" and args.kmax <= 31
-                  and args.compact <= 2**16))
-    kanchor = getattr(args, "kanchor", 0)
-    rc = RasterConfig(tile=16, compact=args.compact, kmax=args.kmax,
-                      chunk=256, ksmall=args.ksmall,
-                      nlarge=args.nlarge if args.ksmall else 0,
-                      packed_train=packed, kanchor=kanchor,
-                      kgroup=mc.n_offsets if kanchor else 0)
+    rc = raster_config(args, mc.n_offsets, args.packed_train)
     return mc, oc, mpc, rc, trainer_kwargs

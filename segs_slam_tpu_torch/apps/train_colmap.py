@@ -32,9 +32,9 @@ from segs_slam_tpu_torch.io.checkpoint import (
     save_mlp_checkpoints_txt,
     save_train_state,
 )
+from segs_slam_tpu_torch.apps.common import raster_config
 from segs_slam_tpu_torch.io.colmap import read_scene
 from segs_slam_tpu_torch.models.config import ModelConfig
-from segs_slam_tpu_torch.ops.rasterizer import RasterConfig
 from segs_slam_tpu_torch.train.config import OptimizationConfig
 from segs_slam_tpu_torch.train.trainer import Trainer
 
@@ -81,11 +81,8 @@ def main(argv=None) -> dict:
     cam = Camera(camera_id=cam0.camera_id, width=cam0.width // s,
                  height=cam0.height // s, fx=fx / s, fy=fy / s,
                  cx=cx / s, cy=cy / s)
-    # packed_train stays off, as in the JAX app: the f32 training binning;
-    # --compact 0 --kmax 0 is the exact binning, which takes no tiers
-    ksmall = args.ksmall if args.kmax else 0
-    rc = RasterConfig(tile=16, compact=args.compact, kmax=args.kmax, chunk=256,
-                      ksmall=ksmall, nlarge=args.nlarge if ksmall else 0)
+    # packed_train stays off, as in the JAX app: the f32 training binning
+    rc = raster_config(args, mc.n_offsets, packed_train="off")
     trainer = Trainer(mc, oc, rc, width=cam.width, height=cam.height,
                       device=args.device)
     trainer.scene.add_camera(cam)

@@ -10,7 +10,9 @@
 // and each costing the host ~14 us to launch: the anchor prefilter and the
 // projection of a view's 655,360 gaussian slots spent 12-21 ms of host
 // time a view on ~840 launches (PERF.md). K5 computes the whole chain in one
-// pass, one thread a gaussian:
+// pass, one thread a gaussian (the covariance and pixel-mean steps by
+// preprocess_common.cuh's conic_cov3d, conic_cov2d and pixel_mean, which K6
+// calls too):
 //   cov3d from scales * scale_modifier and the (w, x, y, z) quaternion; the
 //   view and clip transforms, mean2d and depth; the EWA cov2d with the
 //   1.3 tan_fov clamp and the +0.3 low-pass; det and conic; the radius; the
@@ -59,11 +61,6 @@ namespace {
 constexpr int kThreads = 256;
 
 #include "preprocess_common.cuh"
-
-// `1.0 / t`: Tensor.reciprocal() * 1.0
-__device__ __forceinline__ float inv(float a) {
-  return __fmul_rn(__fdiv_rn(1.0f, a), 1.0f);
-}
 
 // torch.clamp with number bounds: NaN kept
 __device__ __forceinline__ float clamp_lo(float v, float lo) {
@@ -126,107 +123,26 @@ __global__ void __launch_bounds__(kThreads)
     preprocess_kernel(const Params p) {
   __shared__ float wvt[16], fpt[16], cam[4];  // cam: focal x, y, lim x, y
   const int t = threadIdx.x;
-  if (t < 16) {
-    wvt[t] = p.wvt[t];
-  } else if (t < 32) {
-    fpt[t - 16] = p.fpt[t - 16];
-  } else if (t == 32 || t == 33) {
-    const float* tan = t == 32 ? p.tan_x : p.tan_y;
-    if (tan != nullptr) {
-      cam[t - 32] = focal_from_tan(*tan, t == 32 ? p.width : p.height);
-      cam[t - 30] = lim_from_tan(*tan);
-    } else {
-      cam[t - 32] = t == 32 ? p.focal_x : p.focal_y;
-      cam[t - 30] = t == 32 ? p.lim_x : p.lim_y;
-    }
-  }
+  stage_camera(p, t, wvt, fpt, cam);
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + t;
   const bool active = i < p.n;
   bool truncated = false;
   if (active) {
-    // compute_cov3d
-    const float* sc = p.scales + 3 * i;
-    const float* q = p.quats + 4 * i;
-    const float sx = mul(sc[0], p.scale_modifier);
-    const float sy = mul(sc[1], p.scale_modifier);
-    const float sz = mul(sc[2], p.scale_modifier);
-    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    const float r00 = sub(1.0f, mul(2.0f, add(mul(qy, qy), mul(qz, qz))));
-    const float r01 = mul(2.0f, sub(mul(qx, qy), mul(qw, qz)));
-    const float r02 = mul(2.0f, add(mul(qx, qz), mul(qw, qy)));
-    const float r10 = mul(2.0f, add(mul(qx, qy), mul(qw, qz)));
-    const float r11 = sub(1.0f, mul(2.0f, add(mul(qx, qx), mul(qz, qz))));
-    const float r12 = mul(2.0f, sub(mul(qy, qz), mul(qw, qx)));
-    const float r20 = mul(2.0f, sub(mul(qx, qz), mul(qw, qy)));
-    const float r21 = mul(2.0f, add(mul(qy, qz), mul(qw, qx)));
-    const float r22 = sub(1.0f, mul(2.0f, add(mul(qx, qx), mul(qy, qy))));
-    const float s0 = mul(sx, sx), s1 = mul(sy, sy), s2 = mul(sz, sz);
-    auto cov = [&](float a0, float a1, float a2, float b0, float b1,
-                   float b2) {
-      return add(add(mul(mul(a0, b0), s0), mul(mul(a1, b1), s1)),
-                 mul(mul(a2, b2), s2));
-    };
-    const float c0 = cov(r00, r01, r02, r00, r01, r02);
-    const float c1 = cov(r00, r01, r02, r10, r11, r12);
-    const float c2 = cov(r00, r01, r02, r20, r21, r22);
-    const float c3 = cov(r10, r11, r12, r10, r11, r12);
-    const float c4 = cov(r10, r11, r12, r20, r21, r22);
-    const float c5 = cov(r20, r21, r22, r20, r21, r22);
-
-    // preprocess_gaussians: depth, mean2d
+    // compute_cov3d; preprocess_gaussians: mean2d; compute_cov2d
+    Conic cn;
+    conic_cov3d(cn, p.scales + 3 * i, p.quats + 4 * i, p.scale_modifier);
     const float mx = p.means[3 * i], my = p.means[3 * i + 1],
                 mz = p.means[3 * i + 2];
-    const float depth = transform(wvt, 2, mx, my, mz);
-    const float hx = transform(fpt, 0, mx, my, mz);
-    const float hy = transform(fpt, 1, mx, my, mz);
-    const float hw = transform(fpt, 3, mx, my, mz);
-    const float p_w = inv(away_from_zero(add(hw, 1.0e-7f), 1e-6f));
-    const float px = mul(sub(mul(add(mul(hx, p_w), 1.0f),
-                                 static_cast<float>(p.width)), 1.0f), 0.5f);
-    const float py = mul(sub(mul(add(mul(hy, p_w), 1.0f),
-                                 static_cast<float>(p.height)), 1.0f), 0.5f);
+    const PixelMean pm = pixel_mean(fpt, mx, my, mz, p.width, p.height);
+    const float px = pm.px, py = pm.py;
+    conic_cov2d(cn, wvt, cam, mx, my, mz);
+    const float depth = cn.tzr;
+    const float ca = cn.ca, cb = cn.cb, cc = cn.cc, det = cn.det;
+    const float inv_det = cn.inv_det.value;
 
-    // compute_cov2d
-    const float tx0 = transform(wvt, 0, mx, my, mz);
-    const float ty0 = transform(wvt, 1, mx, my, mz);
-    const float tz = away_from_zero(depth, 1e-6f);
-    const float lim_x = cam[2], lim_y = cam[3];
-    const float txc =
-        mul(nan_min(nan_max(__fdiv_rn(tx0, tz), -lim_x), lim_x), tz);
-    const float tyc =
-        mul(nan_min(nan_max(__fdiv_rn(ty0, tz), -lim_y), lim_y), tz);
-    const float inv_z = inv(tz);
-    const float inv_z2 = mul(inv_z, inv_z);
-    const float j00 = mul(cam[0], inv_z);
-    const float j02 = mul(mul(-cam[0], txc), inv_z2);
-    const float j11 = mul(cam[1], inv_z);
-    const float j12 = mul(mul(-cam[1], tyc), inv_z2);
-    // w[i][j] = W2C[i, j] = wvt[j, i]
-    const float m00 = add(mul(j00, wvt[0]), mul(j02, wvt[2]));
-    const float m01 = add(mul(j00, wvt[4]), mul(j02, wvt[6]));
-    const float m02 = add(mul(j00, wvt[8]), mul(j02, wvt[10]));
-    const float m10 = add(mul(j11, wvt[1]), mul(j12, wvt[2]));
-    const float m11 = add(mul(j11, wvt[5]), mul(j12, wvt[6]));
-    const float m12 = add(mul(j11, wvt[9]), mul(j12, wvt[10]));
-    auto dot3 = [](float a0, float a1, float a2, float b0, float b1,
-                   float b2) {
-      return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
-    };
-    const float v0m0 = dot3(c0, c1, c2, m00, m01, m02);
-    const float v1m0 = dot3(c1, c3, c4, m00, m01, m02);
-    const float v2m0 = dot3(c2, c4, c5, m00, m01, m02);
-    const float v0m1 = dot3(c0, c1, c2, m10, m11, m12);
-    const float v1m1 = dot3(c1, c3, c4, m10, m11, m12);
-    const float v2m1 = dot3(c2, c4, c5, m10, m11, m12);
-    const float ca = add(dot3(m00, m01, m02, v0m0, v1m0, v2m0), 0.3f);
-    const float cb = dot3(m00, m01, m02, v0m1, v1m1, v2m1);
-    const float cc = add(dot3(m10, m11, m12, v0m1, v1m1, v2m1), 0.3f);
-
-    // det, conic, radius
-    const float det = sub(mul(ca, cc), mul(cb, cb));
-    const float inv_det = inv(det == 0.0f ? 1.0f : det);
+    // radius
     const float mid = mul(0.5f, add(ca, cc));
     const float lam_max =
         add(mid, __fsqrt_rn(clamp_lo(sub(mul(mid, mid), det), 0.1f)));
@@ -326,36 +242,16 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Params' camera fields, in their order; the entries set their own
 Params camera(const float* means, const float* scales, const float* quats,
               const unsigned char* valid_in, long long n, const float* wvt,
               const float* fpt, const float* tan_x, const float* tan_y,
               float focal_x, float focal_y, float lim_x, float lim_y,
               int width, int height, int tiles_x, int tiles_y, int kmax,
               float tile, float inv_tile, float near, float scale_modifier) {
-  Params p = {};
-  p.means = means;
-  p.scales = scales;
-  p.quats = quats;
-  p.valid_in = valid_in;
-  p.n = n;
-  p.wvt = wvt;
-  p.fpt = fpt;
-  p.tan_x = tan_x;
-  p.tan_y = tan_y;
-  p.focal_x = focal_x;
-  p.focal_y = focal_y;
-  p.lim_x = lim_x;
-  p.lim_y = lim_y;
-  p.width = width;
-  p.height = height;
-  p.tiles_x = tiles_x;
-  p.tiles_y = tiles_y;
-  p.kmax = kmax;
-  p.tile = tile;
-  p.inv_tile = inv_tile;
-  p.near = near;
-  p.scale_modifier = scale_modifier;
-  return p;
+  return Params{means, scales, quats, valid_in, n, wvt, fpt, tan_x, tan_y,
+                focal_x, focal_y, lim_x, lim_y, width, height, tiles_x,
+                tiles_y, kmax, tile, inv_tile, near, scale_modifier};
 }
 
 }  // namespace

@@ -17,9 +17,10 @@
 // rotations from the cotangents of the blend rows 0-4 (mean2d + offset and
 // the conic), of depth and, where it is an output of its own (with an
 // offset), of mean2d. It recomputes the forward's intermediates in registers
-// with K5's arithmetic (preprocess_common.cuh), so the Function saves only
-// its inputs. The opacity and colour rows and mean2d_offset take their rows
-// of the cotangent as they are: no work here. With camera gradients asked
+// by K5's own forward functions (preprocess_common.cuh: conic_cov3d,
+// conic_cov2d, pixel_mean), so the Function saves only its inputs. The
+// opacity and colour rows and mean2d_offset take their rows of the
+// cotangent as they are: no work here. With camera gradients asked
 // (pose refinement: world_view_transform, full_proj_transform, and 0-d
 // device tan_fov tensors), each thread also adds its gaussians' 28 camera
 // terms in double precision; each block writes its sums, and a second
@@ -155,85 +156,21 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
 
   if (conic_path) {
     // ---- forward, as K5 computes it
-    // compute_cov3d
-    const float* sc = p.scales + 3 * i;
-    const float* q = p.quats + 4 * i;
-    const float sx = mul(sc[0], p.scale_modifier);
-    const float sy = mul(sc[1], p.scale_modifier);
-    const float sz = mul(sc[2], p.scale_modifier);
-    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    const float r[3][3] = {
-        {sub(1.0f, mul(2.0f, add(mul(qy, qy), mul(qz, qz)))),
-         mul(2.0f, sub(mul(qx, qy), mul(qw, qz))),
-         mul(2.0f, add(mul(qx, qz), mul(qw, qy)))},
-        {mul(2.0f, add(mul(qx, qy), mul(qw, qz))),
-         sub(1.0f, mul(2.0f, add(mul(qx, qx), mul(qz, qz)))),
-         mul(2.0f, sub(mul(qy, qz), mul(qw, qx)))},
-        {mul(2.0f, sub(mul(qx, qz), mul(qw, qy))),
-         mul(2.0f, add(mul(qy, qz), mul(qw, qx))),
-         sub(1.0f, mul(2.0f, add(mul(qx, qx), mul(qy, qy))))}};
-    const float s[3] = {mul(sx, sx), mul(sy, sy), mul(sz, sz)};
-    // cov3d (xx, xy, xz, yy, yz, zz): the rows (a, b) of R it pairs
-    constexpr int kPair[6][2] = {{0, 0}, {0, 1}, {0, 2},
-                                 {1, 1}, {1, 2}, {2, 2}};
-    float cv[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float* ra = r[kPair[k][0]];
-      const float* rb = r[kPair[k][1]];
-      cv[k] = add(add(mul(mul(ra[0], rb[0]), s[0]),
-                      mul(mul(ra[1], rb[1]), s[1])),
-                  mul(mul(ra[2], rb[2]), s[2]));
-    }
-    // compute_cov2d
-    const float tx0 = transform(V, 0, mx, my, mz);
-    const float ty0 = transform(V, 1, mx, my, mz);
-    const float tzr = transform(V, 2, mx, my, mz);
-    const float tz = away_from_zero(tzr, 1e-6f);
+    Conic fw;
+    conic_cov3d(fw, p.scales + 3 * i, p.quats + 4 * i, p.scale_modifier);
+    conic_cov2d(fw, V, c, mx, my, mz);
+    const float(&r)[3][3] = fw.r;
+    const float(&m)[2][3] = fw.m;
+    const float(&v)[3][2] = fw.v;
+    const float tz = fw.tz, inv_z = fw.inv_z.value, inv_z2 = fw.inv_z2;
+    const float ca = fw.ca, cb = fw.cb, cc = fw.cc, det = fw.det;
+    const float inv_det = fw.inv_det.value;
     const float focal_x = c[0], focal_y = c[1], lim_x = c[2], lim_y = c[3];
-    const float qtx = __fdiv_rn(tx0, tz), qty = __fdiv_rn(ty0, tz);
-    const float ax = nan_max(qtx, -lim_x), ay = nan_max(qty, -lim_y);
-    const float bx = nan_min(ax, lim_x), by = nan_min(ay, lim_y);
-    const float txc = mul(bx, tz), tyc = mul(by, tz);
-    const float rz = __fdiv_rn(1.0f, tz);
-    const float inv_z = mul(rz, 1.0f);
-    const float inv_z2 = mul(inv_z, inv_z);
-    const float ex = mul(-focal_x, txc), ey = mul(-focal_y, tyc);
-    const float j00 = mul(focal_x, inv_z), j02 = mul(ex, inv_z2);
-    const float j11 = mul(focal_y, inv_z), j12 = mul(ey, inv_z2);
-    // w[a][b] = W2C[a, b] = wvt[b, a]; m row 0 = j00 w[0] + j02 w[2],
-    // row 1 = j11 w[1] + j12 w[2]
-    float m[2][3];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      m[0][b] = add(mul(j00, V[4 * b]), mul(j02, V[4 * b + 2]));
-      m[1][b] = add(mul(j11, V[4 * b + 1]), mul(j12, V[4 * b + 2]));
-    }
-    // v[k][row] = (cov3d row k) . m[row]; cov3d's symmetric rows by index
-    constexpr int kRow[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
-    float v[3][2];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-#pragma unroll
-      for (int row = 0; row < 2; ++row) {
-        v[k][row] = add(add(mul(cv[kRow[k][0]], m[row][0]),
-                            mul(cv[kRow[k][1]], m[row][1])),
-                        mul(cv[kRow[k][2]], m[row][2]));
-      }
-    }
-    const float ca = add(add(add(mul(m[0][0], v[0][0]), mul(m[0][1], v[1][0])),
-                             mul(m[0][2], v[2][0])), 0.3f);
-    const float cb = add(add(mul(m[0][0], v[0][1]), mul(m[0][1], v[1][1])),
-                         mul(m[0][2], v[2][1]));
-    const float cc = add(add(add(mul(m[1][0], v[0][1]), mul(m[1][1], v[1][1])),
-                             mul(m[1][2], v[2][1])), 0.3f);
-    // det, conic
-    const float det = sub(mul(ca, cc), mul(cb, cb));
-    const float rdet = __fdiv_rn(1.0f, det == 0.0f ? 1.0f : det);
-    const float inv_det = mul(rdet, 1.0f);
-    const float nb = -cb;
 
-    // ---- backward
+    // ---- backward; conic_cov3d's and conic_cov2d's tables
+    constexpr int kCovPair[6][2] = {{0, 0}, {0, 1}, {0, 2},
+                                    {1, 1}, {1, 2}, {2, 2}};
+    constexpr int kCovRow[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
     const float* f = p.d_feats + i * p.feats_col;
     const float g0 = f[2 * p.feats_row], g1 = f[3 * p.feats_row],
                 g2 = f[4 * p.feats_row];
@@ -241,10 +178,10 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
     float g_cc = mul(g0, inv_det);
     float g_b = -mul(g1, inv_det);
     float g_a = mul(g2, inv_det);
-    const float g_inv = add(add(mul(g0, cc), mul(g1, nb)), mul(g2, ca));
+    const float g_inv = add(add(mul(g0, cc), mul(g1, -cb)), mul(g2, ca));
     // inv_det = reciprocal(where(det == 0, 1, det)) * 1.0
     const float g_det =
-        det == 0.0f ? 0.0f : reciprocal_grad(mul(g_inv, 1.0f), rdet);
+        det == 0.0f ? 0.0f : reciprocal_grad(mul(g_inv, 1.0f), fw.inv_det.r);
     // det = a * cc - b * b
     g_a = add(g_a, mul(g_det, cc));
     g_cc = add(g_cc, mul(g_det, ca));
@@ -259,7 +196,7 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
       g_v[k][0] = mul(g_a, m[0][k]);
       g_v[k][1] = add(mul(g_b, m[0][k]), mul(g_cc, m[1][k]));
     }
-    // v[k][row] = cov3d[kRow[k][.]] . m[row]
+    // v[k][row] = cov3d[kCovRow[k][.]] . m[row]
     float g_cv[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -267,8 +204,9 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
       for (int row = 0; row < 2; ++row) {
 #pragma unroll
         for (int e = 0; e < 3; ++e) {
-          g_cv[kRow[k][e]] = add(g_cv[kRow[k][e]], mul(g_v[k][row], m[row][e]));
-          g_m[row][e] = add(g_m[row][e], mul(g_v[k][row], cv[kRow[k][e]]));
+          const int j = kCovRow[k][e];
+          g_cv[j] = add(g_cv[j], mul(g_v[k][row], m[row][e]));
+          g_m[row][e] = add(g_m[row][e], mul(g_v[k][row], fw.cv[j]));
         }
       }
     }
@@ -281,41 +219,41 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
       g_j11 = add(g_j11, mul(g_m[1][b], V[4 * b + 1]));
       g_j12 = add(g_j12, mul(g_m[1][b], V[4 * b + 2]));
       if constexpr (kCamera) {
-        cam[kWvt + 3 * b] += mul(g_m[0][b], j00);
-        cam[kWvt + 3 * b + 2] += mul(g_m[0][b], j02);
-        cam[kWvt + 3 * b + 1] += mul(g_m[1][b], j11);
-        cam[kWvt + 3 * b + 2] += mul(g_m[1][b], j12);
+        cam[kWvt + 3 * b] += mul(g_m[0][b], fw.j00);
+        cam[kWvt + 3 * b + 2] += mul(g_m[0][b], fw.j02);
+        cam[kWvt + 3 * b + 1] += mul(g_m[1][b], fw.j11);
+        cam[kWvt + 3 * b + 2] += mul(g_m[1][b], fw.j12);
       }
     }
     // j00 = focal_x * inv_z; j02 = ((-focal_x) * tx) * inv_z2; y alike
     const float g_ex = mul(g_j02, inv_z2), g_ey = mul(g_j12, inv_z2);
-    const float g_inv_z2 = add(mul(g_j02, ex), mul(g_j12, ey));
+    const float g_inv_z2 = add(mul(g_j02, fw.ex), mul(g_j12, fw.ey));
     const float g_inv_z =
         add(add(mul(g_j00, focal_x), mul(g_j11, focal_y)),
             add(mul(g_inv_z2, inv_z), mul(g_inv_z2, inv_z)));
     const float g_txc = mul(g_ex, -focal_x), g_tyc = mul(g_ey, -focal_y);
     if constexpr (kCamera) {
-      cam[kFocalX] += sub(mul(g_j00, inv_z), mul(g_ex, txc));
-      cam[kFocalY] += sub(mul(g_j11, inv_z), mul(g_ey, tyc));
+      cam[kFocalX] += sub(mul(g_j00, inv_z), mul(g_ex, fw.txc));
+      cam[kFocalY] += sub(mul(g_j11, inv_z), mul(g_ey, fw.tyc));
     }
     // tx = minimum(maximum(tx0 / tz, -lim), lim) * tz
-    float g_tz = add(mul(g_txc, bx), mul(g_tyc, by));
+    float g_tz = add(mul(g_txc, fw.bx), mul(g_tyc, fw.by));
     float g_ax, g_hi_x, g_q_x, g_lo_x, g_ay, g_hi_y, g_q_y, g_lo_y;
-    minimum_grad(ax, lim_x, mul(g_txc, tz), g_ax, g_hi_x);
-    maximum_grad(qtx, -lim_x, g_ax, g_q_x, g_lo_x);
-    minimum_grad(ay, lim_y, mul(g_tyc, tz), g_ay, g_hi_y);
-    maximum_grad(qty, -lim_y, g_ay, g_q_y, g_lo_y);
+    minimum_grad(fw.ax, lim_x, mul(g_txc, tz), g_ax, g_hi_x);
+    maximum_grad(fw.qtx, -lim_x, g_ax, g_q_x, g_lo_x);
+    minimum_grad(fw.ay, lim_y, mul(g_tyc, tz), g_ay, g_hi_y);
+    maximum_grad(fw.qty, -lim_y, g_ay, g_q_y, g_lo_y);
     if constexpr (kCamera) {
       cam[kLimX] += sub(g_hi_x, g_lo_x);
       cam[kLimY] += sub(g_hi_y, g_lo_y);
     }
     const float g_tx0 = __fdiv_rn(g_q_x, tz);
     const float g_ty0 = __fdiv_rn(g_q_y, tz);
-    g_tz = add(g_tz, add(mul(-g_q_x, __fdiv_rn(qtx, tz)),
-                         mul(-g_q_y, __fdiv_rn(qty, tz))));
+    g_tz = add(g_tz, add(mul(-g_q_x, __fdiv_rn(fw.qtx, tz)),
+                         mul(-g_q_y, __fdiv_rn(fw.qty, tz))));
     // inv_z = reciprocal(tz) * 1.0
-    g_tz = add(g_tz, reciprocal_grad(mul(g_inv_z, 1.0f), rz));
-    const float g_tzr = away_from_zero_grad(tzr, g_tz);
+    g_tz = add(g_tz, reciprocal_grad(mul(g_inv_z, 1.0f), fw.inv_z.r));
+    const float g_tzr = away_from_zero_grad(fw.tzr, g_tz);
     transform_grad<kCamera>(V, 0, g_tx0, mx, my, mz, gx, gy, gz, cam,
                             kWvt + 0);
     transform_grad<kCamera>(V, 1, g_ty0, mx, my, mz, gx, gy, gz, cam,
@@ -328,10 +266,10 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
     float g_s[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
-      const int a = kPair[k][0], b = kPair[k][1];
+      const int a = kCovPair[k][0], b = kCovPair[k][1];
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
-        const float g_p = mul(g_cv[k], s[e]);
+        const float g_p = mul(g_cv[k], fw.s[e]);
         g_s[e] = add(g_s[e], mul(g_cv[k], mul(r[a][e], r[b][e])));
         g_r[a][e] = add(g_r[a][e], mul(g_p, r[b][e]));
         g_r[b][e] = add(g_r[b][e], mul(g_p, r[a][e]));
@@ -340,14 +278,15 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
     // s[e] = (scale[e] * modifier) ** 2
     if (p.d_scales != nullptr) {
       float* ds = p.d_scales + 3 * i;
-      ds[0] = mul(mul(g_s[0], mul(2.0f, sx)), p.scale_modifier);
-      ds[1] = mul(mul(g_s[1], mul(2.0f, sy)), p.scale_modifier);
-      ds[2] = mul(mul(g_s[2], mul(2.0f, sz)), p.scale_modifier);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        ds[e] = mul(mul(g_s[e], mul(2.0f, fw.sc[e])), p.scale_modifier);
+      }
     }
     if (p.d_quats != nullptr) {
       // components 0 w, 1 x, 2 y, 3 z. On the diagonal r = 1 - 2 (u u +
       // v v): (u, v) by row
-      const float qv[4] = {qw, qx, qy, qz};
+      const float* qv = p.quats + 4 * i;
       float gq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       constexpr int kDiag[3][2] = {{2, 3}, {1, 3}, {1, 2}};
 #pragma unroll
@@ -388,12 +327,9 @@ __device__ __forceinline__ void backward_one(const BwdParams& p,
 
   if (mean2d_path) {
     // mean2d = ((h / hw' + 1) * size - 1) * 0.5, hw' = afz(hw + 1e-7)
-    const float hx = transform(P, 0, mx, my, mz);
-    const float hy = transform(P, 1, mx, my, mz);
-    const float hw = transform(P, 3, mx, my, mz);
-    const float hwe = add(hw, 1.0e-7f);
-    const float rw = __fdiv_rn(1.0f, away_from_zero(hwe, 1e-6f));
-    const float p_w = mul(rw, 1.0f);
+    const PixelMean pm = pixel_mean(P, mx, my, mz, p.width, p.height);
+    const float hx = pm.hx, hy = pm.hy, hwe = pm.hwe;
+    const float rw = pm.p_w.r, p_w = pm.p_w.value;
     float g_px = 0.0f, g_py = 0.0f;
     if (conic_path) {
       const float* f = p.d_feats + i * p.feats_col;
@@ -438,20 +374,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float V[16], P[16], c[4];  // c: focal x, y, lim x, y
   __shared__ double warp_sums[kCamera ? kWarps : 1][kCam];
   const int t = threadIdx.x;
-  if (t < 16) {
-    V[t] = p.wvt[t];
-  } else if (t < 32) {
-    P[t - 16] = p.fpt[t - 16];
-  } else if (t == 32 || t == 33) {
-    const float* tan = t == 32 ? p.tan_x : p.tan_y;
-    if (tan != nullptr) {
-      c[t - 32] = focal_from_tan(*tan, t == 32 ? p.width : p.height);
-      c[t - 30] = lim_from_tan(*tan);
-    } else {
-      c[t - 32] = t == 32 ? p.focal_x : p.focal_y;
-      c[t - 30] = t == 32 ? p.lim_x : p.lim_y;
-    }
-  }
+  stage_camera(p, t, V, P, c);
   __syncthreads();
 
   double cam[kCamera ? kCam : 1] = {};
@@ -546,33 +469,12 @@ extern "C" int segs_preprocess_backward(
     long long mean2d_row, long long mean2d_col, float* d_means,
     float* d_scales, float* d_quats, double* partials, int max_blocks,
     float* d_wvt, float* d_fpt, float* d_tan, void* stream) {
-  BwdParams p = {};
-  p.means = means;
-  p.scales = scales;
-  p.quats = quats;
-  p.n = n;
-  p.wvt = wvt;
-  p.fpt = fpt;
-  p.tan_x = tan_x;
-  p.tan_y = tan_y;
-  p.focal_x = focal_x;
-  p.focal_y = focal_y;
-  p.lim_x = lim_x;
-  p.lim_y = lim_y;
-  p.width = width;
-  p.height = height;
-  p.scale_modifier = scale_modifier;
-  p.d_feats = d_feats;
-  p.feats_row = feats_row;
-  p.feats_col = feats_col;
-  p.d_depth = d_depth;
-  p.depth_step = depth_step;
-  p.d_mean2d = d_mean2d;
-  p.mean2d_row = mean2d_row;
-  p.mean2d_col = mean2d_col;
-  p.d_means = d_means;
-  p.d_scales = d_scales;
-  p.d_quats = d_quats;
+  // BwdParams' fields in their order (partials set below)
+  BwdParams p = {means, scales, quats, n, wvt, fpt, tan_x, tan_y, focal_x,
+                 focal_y, lim_x, lim_y, width, height, scale_modifier,
+                 d_feats, feats_row, feats_col, d_depth, depth_step,
+                 d_mean2d, mean2d_row, mean2d_col, d_means, d_scales,
+                 d_quats};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long needed = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(

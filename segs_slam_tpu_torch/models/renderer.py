@@ -133,10 +133,9 @@ def render(
 class EvalRenderer:
     """The eval render of a map: decode + project + the packed eval blend
     (binned_blend_eval, kernel K3), without gradients. Where the packed
-    layouts do not fit the config (tiles other than 16 px, over 63 tile
-    columns, kmax over 31 or the exact binning's 0), or with packed=False,
-    it renders through the
-    f32 training blend (binned_blend, kernel K1), as the JAX class does.
+    layouts do not fit the config (RasterConfig.eval_binning), or with
+    packed=False, it renders through the training blend (binned_blend,
+    kernel K1), as the JAX class does.
 
     The JAX class fuses the whole render into one jit to save the TPU's
     dispatch costs; here the same ops run eagerly on `device`.
@@ -151,23 +150,32 @@ class EvalRenderer:
         self.device = torch.device(device)
         self.bg = torch.as_tensor(bg, dtype=torch.float32,
                                   device=self.device).reshape(3)
-        rc = raster_config
-        self.packed = (packed and rc.tile == 16 and rc.grid(width, height)[0]
-                       <= 63 and 0 < rc.kmax <= 31)
+        route = raster_config.eval_binning(
+            *raster_config.grid(width, height), packed)
+        self.packed = route in ("sel_direct", "f16")
+
+    def _blend(self, feats: torch.Tensor, aux: dict):
+        """The view's image (3, H, W), num_instances and num_compact: the
+        packed eval blend, or the training blend where it does not fit
+        (`packed`). No gradient."""
+        rc, w, h = self.raster_config, self.width, self.height
+        tx, ty = rc.grid(w, h)
+        blend = binned_blend_eval if self.packed else binned_blend
+        with torch.no_grad():
+            color, *_, num_instances, num_compact = blend(
+                feats, aux, self.bg, rc, tx, ty)
+        return (tiles_to_image(color, tx, ty, rc.tile, w, h), num_instances,
+                num_compact)
 
     def render_with_counts(self, anchors: AnchorState, decoders: Decoders,
                            cam: dict) -> dict:
         """image (3, H, W) and the view's num_instances, num_compact and
         num_kmax_truncated (device tensors)."""
-        rc, w, h = self.raster_config, self.width, self.height
-        tx, ty = rc.grid(w, h)
-        blend = binned_blend_eval if self.packed else binned_blend
         with torch.no_grad():
             _, _, proj, feats, aux = project_view(
-                anchors, decoders, cam, w, h, self.model_config, rc)
-            color, *_, num_instances, num_compact = blend(
-                feats, aux, self.bg, rc, tx, ty)
-            image = tiles_to_image(color, tx, ty, rc.tile, w, h)
+                anchors, decoders, cam, self.width, self.height,
+                self.model_config, self.raster_config)
+            image, num_instances, num_compact = self._blend(feats, aux)
         return {"image": image, "num_instances": num_instances,
                 "num_compact": num_compact,
                 "num_kmax_truncated": proj.kmax_truncated}
@@ -201,10 +209,10 @@ def calibrate_eval_config(raster_config: RasterConfig,
     with eval_variant's sizes as floors and compact as the ceiling. Static
     formula sizes dim real maps whose footprints are heavier than the
     synthetic ones (12 dB measured in the JAX package's history). Returns
-    eval_variant's result unchanged where the packed path does not
-    apply."""
+    eval_variant's result unchanged where the view does not take the
+    direct-selection binning (RasterConfig.eval_binning)."""
     rc = raster_config.eval_variant(width, height)
-    if not rc.sel_direct:
+    if rc.eval_binning(*rc.grid(width, height)) != "sel_direct":
         return rc
     n_mid = n_large = 0
     with torch.no_grad():
@@ -228,8 +236,8 @@ class ChainedEvalRenderer(EvalRenderer):
     """EvalRenderer's render as three stages: decode (prefilter + the
     neural-gaussian MLPs) -> project (cov3d + preprocess + the blend's
     feature rows) -> blend (the packed eval binning and K3, or, where the
-    packed layouts do not fit or with packed=False, the f32 binning and
-    K1: EvalRenderer's gate, the JAX class's renderer.py:329-332). Not
+    packed layouts do not fit or with packed=False, the training blend and
+    K1: EvalRenderer's, the JAX class's renderer.py:329-332). Not
     differentiable; EvalRenderer's constructor.
 
     The JAX class compiles each stage as its own jit, and its `jits()`
@@ -258,13 +266,7 @@ class ChainedEvalRenderer(EvalRenderer):
 
     def blend(self, feats: torch.Tensor, aux: dict) -> torch.Tensor:
         """The image (3, H, W)."""
-        rc = self.raster_config
-        tx, ty = rc.grid(self.width, self.height)
-        blend = binned_blend_eval if self.packed else binned_blend
-        with torch.no_grad():
-            color, *_ = blend(feats, aux, self.bg, rc, tx, ty)
-        return tiles_to_image(color, tx, ty, rc.tile, self.width,
-                              self.height)
+        return self._blend(feats, aux)[0]
 
     def __call__(self, anchors: AnchorState, decoders: Decoders,
                  cam: dict) -> torch.Tensor:

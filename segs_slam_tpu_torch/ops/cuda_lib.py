@@ -5,7 +5,7 @@ into a shared library that is loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Libraries are built on first use into
 `build/segs_slam_tpu_torch/` at the root of the checkout, named by a hash of
 the source, the shared headers (`csrc/*.cuh`) and the flags so that a stale
-build is never loaded.
+build is never loaded. `launch` calls an entry point on the current stream.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ROOT = Path(__file__).resolve().parents[2]
@@ -80,3 +82,19 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.segs_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def launch(library: str, entry: str, argtypes: list, device: torch.device,
+           args: tuple) -> None:
+    """Call the C entry point `entry` of csrc/<library>.cu with `args` and
+    the device's current stream (the last of `argtypes`, set with an int
+    result at the first call); raise on the CUDA error code it returns."""
+    lib = load_library(library)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    check(lib, code, f"{entry} launch")

@@ -19,8 +19,8 @@ arrays. The f32 (training) binning:
 
 The exact binning (`bin_exact`, RasterConfig.exact) keeps every alive
 gaussian and every tile of its rect, with neither step 1's cap nor the
-kmax clamp. The packed binnings (below `DEPTH_KEY_BITS`), the eval one and
-the training one (`expand_and_sort_packed_train`), are described there.
+kmax clamp. The packed binnings, the eval one and the training one
+(`expand_and_sort_packed_train`), are described with their layouts below.
 """
 
 from __future__ import annotations
@@ -30,6 +30,13 @@ from typing import NamedTuple
 import torch
 
 from segs_slam_tpu_torch.ops.rasterizer.preprocess import (
+    DEPTH_KEY_BITS,
+    MAX_COMPACT_PACKED_TRAIN,
+    MAX_KMAX_PACKED,
+    MAX_PACKED_TILES,
+    MAX_TILES_X,
+    MAX_TILES_Y_PACK8,
+    PACKED_TILE,
     RasterConfig,
     to_int32,
 )
@@ -242,10 +249,10 @@ def bin_exact(feats: torch.Tensor, aux: dict, num_tiles_x: int,
 #   c3 = round(255 r) | round(255 g) << 8 | round(255 b) << 16
 #        | rect_min_x << 24
 # Expansion re-bases p_xy from the rect's corner to each instance's own tile,
-# so K3's mean2d is tile-local.
+# so K3's mean2d is tile-local. The limits these layouts set on a config
+# are defined beside RasterConfig, whose route methods read them.
 # ---------------------------------------------------------------------------
 
-DEPTH_KEY_BITS = 21
 _DKEY_MASK = (1 << DEPTH_KEY_BITS) - 1
 _SEL_DEAD = 0xFFFFFFFF  # sel_direct key of a dead row: after every other
 
@@ -301,7 +308,7 @@ def _pack_eval_cols(feats: torch.Tensor, aux: dict, config: RasterConfig):
     """Packed columns of the raw [N] rows: (payload cols [5 or 4, N],
     dmeta [N], alive_ok, opac_q, num_valid). Dead rows carry touched 0 in
     dmeta, so they expand to no tile wherever they land."""
-    if config.kmax > 31:
+    if config.kmax > MAX_KMAX_PACKED:
         raise ValueError("touched packs into dmeta bits 21..25: kmax <= 31")
     alive = aux["alive"]
     x, y, ca, cb, cc, op, r, g, b = feats
@@ -458,11 +465,11 @@ def _expand_tiers(cols, dmeta, base_rows, sel_rows, tx, num_tiles,
 
 
 def _check_packed_grid(num_tiles_x, num_tiles_y, config: RasterConfig):
-    if config.tile != 16:
+    if config.tile != PACKED_TILE:
         raise ValueError("the packed binning assumes 16 px tiles")
-    if (num_tiles_x * num_tiles_y + 1) << DEPTH_KEY_BITS >= 1 << 32:
+    if num_tiles_x * num_tiles_y > MAX_PACKED_TILES:
         raise ValueError("the tile id must fit above the 21-bit depth key")
-    if num_tiles_x > 63:
+    if num_tiles_x > MAX_TILES_X:
         raise ValueError("rect_w packs into 6 bits: at most 63 tile columns")
 
 
@@ -560,7 +567,7 @@ def bin_eval_direct(feats: torch.Tensor, aux: dict, num_tiles_x: int,
     if not config.ksmall:
         raise ValueError("sel_direct requires the tiered expansion")
     if config.pack8:
-        if num_tiles_y > 31:
+        if num_tiles_y > MAX_TILES_Y_PACK8:
             raise ValueError("pack8 packs rect_min_y into 5 bits: at most "
                              "31 tile rows")
         if not return_packed:
@@ -600,7 +607,7 @@ def expand_and_sort_packed_train(pc: PackedCompact, num_tiles_x: int,
                          "training expansion is 2-tier")
     _check_packed_grid(num_tiles_x, num_tiles_y, config)
     nc, km, ks = config.compact, config.kmax, config.ksmall
-    if nc > 1 << 16:
+    if nc > MAX_COMPACT_PACKED_TRAIN:
         raise ValueError("packed_train packs the compact id into 16 bits: "
                          "compact <= 2^16")
     num_tiles = num_tiles_x * num_tiles_y

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from segs_slam_tpu_torch.ops.cuda_lib import check, load_library
+from segs_slam_tpu_torch.ops.cuda_lib import launch
 from segs_slam_tpu_torch.ops.rasterizer.binning import (
     NPAY,
     _f16_from_bits,
@@ -319,17 +319,22 @@ def _check_blend_launch(feats, config: RasterConfig, num_tiles: int,
     return npix, _pixels_per_thread(num_tiles, many_tiles)
 
 
+def _on_device(kernel, plain, *args):
+    """`kernel` (a kernel's launch) on CUDA tensors, `plain` (its plain
+    version) on CPU tensors, as args[0] lies."""
+    if args[0].is_cuda:
+        return kernel(*args)
+    if args[0].device.type == "cpu":
+        return plain(*args)
+    raise ValueError(f"no blend for device {args[0].device}")
+
+
 def blend_forward(feats, tile_start, tile_stop, bg, tiles_x,
                   config: RasterConfig):
     """K1 on CUDA tensors; its plain version on CPU tensors. Same arguments
     and outputs as `blend_forward_reference`."""
-    if feats.is_cuda:
-        return blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
-                                  config)
-    if feats.device.type == "cpu":
-        return blend_forward_reference(feats, tile_start, tile_stop, bg,
-                                       tiles_x, config)
-    raise ValueError(f"no blend for device {feats.device}")
+    return _on_device(blend_forward_cuda, blend_forward_reference, feats,
+                      tile_start, tile_stop, bg, tiles_x, config)
 
 
 def blend_backward(feats, tile_start, tile_stop, bg, tiles_x,
@@ -337,46 +342,26 @@ def blend_backward(feats, tile_start, tile_stop, bg, tiles_x,
                    ncontrib):
     """K2 on CUDA tensors; its plain version on CPU tensors. Same arguments
     and output as `blend_backward_reference`."""
-    args = (feats, tile_start, tile_stop, bg, tiles_x, config, dcolor,
-            ddepth, dfinal_t, final_t, ncontrib)
-    if feats.is_cuda:
-        return blend_backward_cuda(*args)
-    if feats.device.type == "cpu":
-        return blend_backward_reference(*args)
-    raise ValueError(f"no blend for device {feats.device}")
+    return _on_device(blend_backward_cuda, blend_backward_reference, feats,
+                      tile_start, tile_stop, bg, tiles_x, config, dcolor,
+                      ddepth, dfinal_t, final_t, ncontrib)
 
 
 def blend_forward_eval_packed(cols, tile_start, tile_stop, bg, tiles_x,
                               config: RasterConfig):
     """K3 on CUDA tensors; its plain version on CPU tensors. Same arguments
     and output as `blend_forward_eval_packed_reference`."""
-    args = (cols, tile_start, tile_stop, bg, tiles_x, config)
-    if cols.is_cuda:
-        return blend_forward_eval_packed_cuda(*args)
-    if cols.device.type == "cpu":
-        return blend_forward_eval_packed_reference(*args)
-    raise ValueError(f"no blend for device {cols.device}")
+    return _on_device(blend_forward_eval_packed_cuda,
+                      blend_forward_eval_packed_reference, cols, tile_start,
+                      tile_stop, bg, tiles_x, config)
 
 
 def blend_forward_eval(feats, tile_start, tile_stop, bg, tiles_x,
                        config: RasterConfig):
     """K4 on CUDA tensors; its plain version on CPU tensors. Same arguments
     and output as `blend_forward_eval_reference`."""
-    args = (feats, tile_start, tile_stop, bg, tiles_x, config)
-    if feats.is_cuda:
-        return blend_forward_eval_cuda(*args)
-    if feats.device.type == "cpu":
-        return blend_forward_eval_reference(*args)
-    raise ValueError(f"no blend for device {feats.device}")
-
-
-def _library(name: str, argtypes: list):
-    lib = load_library(name)
-    fn = getattr(lib, f"segs_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
+    return _on_device(blend_forward_eval_cuda, blend_forward_eval_reference,
+                      feats, tile_start, tile_stop, bg, tiles_x, config)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -397,7 +382,6 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     _check_inputs(feats, tile_start, tile_stop, bg, tiles_x)
     nt = tile_start.shape[0]
     npix, ppt = _check_blend_launch(feats, config, nt)
-    lib, fn = _library("blend_fwd", _FWD_ARGTYPES)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
@@ -407,15 +391,12 @@ def blend_forward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     final_t = torch.empty((nt, 1, npix), dtype=torch.float32, device=dev)
     depth = torch.empty((nt, 1, npix), dtype=torch.float32, device=dev)
     ncontrib = torch.empty((nt, 1, npix), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(
-            feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-            tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            ppt, config.alpha_min, config.alpha_clamp,
-            config.transmittance_min, color.data_ptr(), final_t.data_ptr(),
-            depth.data_ptr(), ncontrib.data_ptr(), stream)
-    check(lib, code, "blend_fwd launch")
+    launch("blend_fwd", "segs_blend_fwd", _FWD_ARGTYPES, dev, (
+        feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+        tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile, ppt,
+        config.alpha_min, config.alpha_clamp, config.transmittance_min,
+        color.data_ptr(), final_t.data_ptr(), depth.data_ptr(),
+        ncontrib.data_ptr()))
     blend_forward_cuda.launches += 1
     return color, final_t, depth, ncontrib
 
@@ -444,7 +425,6 @@ def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
             raise ValueError(f"{name} must be [{nt}, {c}, {npix}] {dtype} on "
                              f"{feats.device}, got {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}")
-    lib, fn = _library("blend_bwd", _BWD_ARGTYPES)
     feats, tile_start, tile_stop, dcolor, ddepth, dfinal_t, final_t, \
         ncontrib = (x.contiguous() for x in (
             feats, tile_start, tile_stop, dcolor, ddepth, dfinal_t, final_t,
@@ -452,15 +432,12 @@ def blend_backward_cuda(feats, tile_start, tile_stop, bg, tiles_x,
     bg = bg.reshape(3).contiguous()
     dev = feats.device
     dfeats = torch.empty(feats.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(
-            feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-            tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            ppt, config.alpha_min, config.alpha_clamp, dcolor.data_ptr(),
-            ddepth.data_ptr(), dfinal_t.data_ptr(), final_t.data_ptr(),
-            ncontrib.data_ptr(), dfeats.data_ptr(), stream)
-    check(lib, code, "blend_bwd launch")
+    launch("blend_bwd", "segs_blend_bwd", _BWD_ARGTYPES, dev, (
+        feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+        tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile, ppt,
+        config.alpha_min, config.alpha_clamp, dcolor.data_ptr(),
+        ddepth.data_ptr(), dfinal_t.data_ptr(), final_t.data_ptr(),
+        ncontrib.data_ptr(), dfeats.data_ptr()))
     blend_backward_cuda.launches += 1
     return dfeats
 
@@ -474,21 +451,17 @@ def _launch_eval(feats, layout, tile_start, tile_stop, bg, tiles_x,
     current stream; returns color [nt, 3, P]."""
     nt = tile_start.shape[0]
     npix, ppt = _check_blend_launch(feats, config, nt, _MANY_EVAL_TILES)
-    lib, fn = _library("blend_eval", _EVAL_ARGTYPES)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
     bg = bg.reshape(3).contiguous()
     color = torch.empty((nt, 3, npix), dtype=torch.float32,
                         device=feats.device)
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        code = fn(
-            feats.data_ptr(), layout, feats.shape[1], tile_start.data_ptr(),
-            tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile,
-            ppt, config.alpha_min, config.alpha_clamp,
-            config.transmittance_min, color.data_ptr(), stream)
-    check(lib, code, "blend_eval launch")
+    launch("blend_eval", "segs_blend_eval", _EVAL_ARGTYPES, feats.device, (
+        feats.data_ptr(), layout, feats.shape[1], tile_start.data_ptr(),
+        tile_stop.data_ptr(), bg.data_ptr(), nt, tiles_x, config.tile, ppt,
+        config.alpha_min, config.alpha_clamp, config.transmittance_min,
+        color.data_ptr()))
     return color
 
 
@@ -523,18 +496,8 @@ def blend_forward_eval_cuda(feats, tile_start, tile_stop, bg, tiles_x,
 blend_forward_eval_cuda.launches = 0  # K4 launches, read by chip_smoke.py
 
 
-def uses_packed_train(config: RasterConfig, tiles_x: int) -> bool:
-    """Whether the training blend bins through the packed sorts: the JAX
-    `_binned_blend_fwd`'s gate (blend.py:962-964). packed_train on, 16 px
-    tiles, at most 63 tile columns, kmax <= 31 and compact <= 2^16; else
-    the f32 binning, as in JAX. The exact binning refuses packed_train
-    (RasterConfig's checks)."""
-    return (config.packed_train and config.tile == 16 and tiles_x <= 63
-            and config.kmax <= 31 and config.compact <= 1 << 16)
-
-
-# training blends by binning ("packed", "f32" or "exact"), read by
-# chip_smoke.py
+# training blends by binning (RasterConfig.train_binning's "packed", "f32"
+# or "exact"), read by chip_smoke.py
 train_binnings = {"packed": 0, "f32": 0, "exact": 0}
 
 
@@ -557,29 +520,29 @@ def _count_binning(num_instances: torch.Tensor, num_compact: torch.Tensor,
 
 class _BinnedBlend(torch.autograd.Function):
     """Compaction + expansion + sort (the f32 or the packed training
-    binning), or the exact binning, + K1 forward; K2 + the gradient routing
-    of the JAX `_binned_blend_bwd` backward."""
+    binning), or the exact binning, as RasterConfig.train_binning says, + K1
+    forward; K2 + the gradient routing of the JAX `_binned_blend_bwd`
+    backward."""
 
     @staticmethod
     def forward(ctx, feats, depth, bg, aux, config, tiles_x, tiles_y):
         aux = dict(aux, depth=depth)
+        route = config.train_binning(tiles_x, tiles_y)
         with tracing.span("render.binning"):
-            if config.exact:
+            if route == "exact":
                 binned, num_valid = bin_exact(feats, aux, tiles_x, tiles_y)
                 orig_id = valid = None
-                train_binnings["exact"] += 1
             else:
-                if uses_packed_train(config, tiles_x):
+                if route == "packed":
                     cg = compact_gaussians_packed(feats, aux, config,
                                                   with_orig=True)
                     binned = expand_and_sort_packed_train(cg, tiles_x,
                                                           tiles_y, config)
-                    train_binnings["packed"] += 1
                 else:
                     cg = compact_gaussians(feats, aux, config)
                     binned = expand_and_sort(cg, tiles_x, tiles_y, config)
-                    train_binnings["f32"] += 1
                 num_valid, orig_id, valid = cg.num_valid, cg.orig_id, cg.valid
+            train_binnings[route] += 1
         _count_binning(binned.num_instances, num_valid, config)
         with tracing.span("render.blend"):
             color, final_t, depth_img, ncontrib = blend_forward(
@@ -638,11 +601,11 @@ def binned_blend(feats: torch.Tensor, aux: dict, bg: torch.Tensor,
     aux: rect_min_x, rect_min_y, rect_w, touched (int32), depth (f32),
     alive (bool), each (N,); only depth carries a gradient (the
     expected-depth cotangent flows back through it). bg: (3,).
-    With config.packed_train, the binning is the packed one where
-    `uses_packed_train` allows it (JAX's own gate), else the f32 one; with
-    config.exact, the exact binning (no cap, no clamp), which counts its
-    pairs and gaussians (`render.pairs`, `render.binned_gaussians`) while
-    tracing.
+    The binning is RasterConfig.train_binning's: with config.packed_train,
+    the packed one where the packed layouts fit (JAX's own gate), else the
+    f32 one; with config.exact, the exact binning (no cap, no clamp), which
+    counts its pairs and gaussians (`render.pairs`,
+    `render.binned_gaussians`) while tracing.
     Returns (color [nt,3,P], final_T [nt,1,P], depth [nt,1,P],
     n_contrib [nt,1,P] int32, num_instances, num_compact)."""
     if config.sel_direct or config.pack8:

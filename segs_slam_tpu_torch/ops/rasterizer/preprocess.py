@@ -14,6 +14,17 @@ from typing import NamedTuple
 
 import torch
 
+# The limits the packed binnings' bit layouts (binning.py) set on a config,
+# read by RasterConfig's route methods and binning.py's guards:
+PACKED_TILE = 16  # p_xy holds mean2d less the rect corner * 16
+DEPTH_KEY_BITS = 21  # the sort key's depth bits; the tile id above them
+MAX_PACKED_TILES = (1 << (32 - DEPTH_KEY_BITS)) - 2  # and the sentinel tile
+MAX_TILES_X = 63  # dmeta packs rect_w into 6 bits
+MAX_TILES_Y_PACK8 = 31  # pack8 packs rect_min_y into 5 bits of c2
+MAX_KMAX_PACKED = 31  # dmeta packs min(touched, kmax) into 5 bits
+MAX_COMPACT_PACKED_TRAIN = 1 << 16  # the compact id in p_b's top 16 bits
+MIN_KMAX_TIERS = 6  # eval_variant's tiers: ksmall 2 < kmid = kmax // 2
+
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
@@ -27,7 +38,7 @@ class RasterConfig:
     3-tier (kmid/nmid), sel_direct and pack8 fields drive the packed eval
     binning (binning.py, blend.py:binned_blend_eval; `eval_variant` turns
     them on); packed_train lets the training blend bin through the packed
-    sorts where they fit (blend.py:uses_packed_train). kanchor / kgroup
+    sorts where they fit (`train_binning`). kanchor / kgroup
     (eval path only; 0 = off): with kgroup = the model's n_offsets and
     kanchor < kgroup, each anchor's kgroup gaussians are priority-sorted
     along the K axis and only the kanchor first survive into the packed
@@ -100,6 +111,38 @@ class RasterConfig:
         ty = (height + self.tile - 1) // self.tile
         return tx, ty
 
+    def _packed_fits(self, tiles_x: int, tiles_y: int) -> bool:
+        """Whether the packed layouts hold this config on the grid: 16 px
+        tiles, at most 63 tile columns, 0 < kmax <= 31, and the tile ids
+        above the depth key (where the JAX gates leave the binning to
+        raise)."""
+        return (self.tile == PACKED_TILE and tiles_x <= MAX_TILES_X
+                and tiles_x * tiles_y <= MAX_PACKED_TILES
+                and 0 < self.kmax <= MAX_KMAX_PACKED)
+
+    def train_binning(self, tiles_x: int, tiles_y: int) -> str:
+        """The training blend's binning on a tiles_x x tiles_y grid
+        (`grid(width, height)`): "exact" (compact = kmax = 0), "packed"
+        (packed_train where the packed layouts fit and compact <= 2^16: the
+        JAX `_binned_blend_fwd`'s gate, blend.py:962-964) or "f32"."""
+        if self.exact:
+            return "exact"
+        if (self.packed_train and self._packed_fits(tiles_x, tiles_y)
+                and self.compact <= MAX_COMPACT_PACKED_TRAIN):
+            return "packed"
+        return "f32"
+
+    def eval_binning(self, tiles_x: int, tiles_y: int,
+                     packed: bool = True) -> str:
+        """The eval render's binning on a tiles_x x tiles_y grid: with
+        `packed` and where the packed layouts fit, binned_blend_eval's
+        "sel_direct" (config.sel_direct) or "f16" (the packed compaction);
+        else the training blend's (`train_binning`), as the JAX
+        EvalRenderer chooses (renderer.py:146-150)."""
+        if packed and self._packed_fits(tiles_x, tiles_y):
+            return "sel_direct" if self.sel_direct else "f16"
+        return self.train_binning(tiles_x, tiles_y)
+
     def eval_variant(self, width: int, height: int) -> "RasterConfig":
         """The eval-path upgrade of this (training) config, as the JAX
         package chooses it: 3-tier expansion, direct-selection binning and
@@ -108,8 +151,8 @@ class RasterConfig:
         packed layouts do not fit: tiles other than 16 px, a grid over 63x31
         tiles, or kmax outside 6..31 (the exact binning's 0 among them)."""
         tx, ty = self.grid(width, height)
-        if (self.tile != 16 or tx > 63 or ty > 31 or self.kmax > 31
-                or self.kmax < 6):
+        if not (self._packed_fits(tx, ty) and ty <= MAX_TILES_Y_PACK8
+                and self.kmax >= MIN_KMAX_TIERS):
             return self
         nmid = max(self.nmid, self.compact // 8)
         nlarge = min(nmid, max(self.nlarge if self.ksmall else 0,

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from segs_slam_tpu_torch.ops.cuda_lib import check, load_library
+from segs_slam_tpu_torch.ops.cuda_lib import launch
 from segs_slam_tpu_torch.ops.rasterizer.blend import NPAY, binned_blend
 from segs_slam_tpu_torch.ops.rasterizer.preprocess import (
     GaussianProjection,
@@ -142,7 +142,7 @@ def _launch_preprocess(means3d, scales, rotations, world_view_transform,
     else:
         visible = torch.empty(n, dtype=torch.bool, device=dev)
         outs = (visible.data_ptr(),)
-    _launch("preprocess", entry, _K5_ENTRIES[entry], dev, camera + outs)
+    launch("preprocess", entry, _K5_ENTRIES[entry], dev, camera + outs)
     preprocess_cuda.launches += 1
     if not full:
         return visible
@@ -260,8 +260,8 @@ def preprocess_backward_cuda(means3d, scales, rotations,
             *strides(d_mean2d, 2), _data(d_means), _data(d_scales),
             _data(d_quats), _data(partials), _K6_MAX_BLOCKS, _data(d_wvt),
             _data(d_fpt), _data(d_tan))
-    _launch("preprocess_bwd", "segs_preprocess_backward", _K6_ARGTYPES, dev,
-            args)
+    launch("preprocess_bwd", "segs_preprocess_backward", _K6_ARGTYPES, dev,
+           args)
     preprocess_backward_cuda.launches += 1
     d_tans = [d_tan[axis] if need_camera and isinstance(tan, torch.Tensor)
               and tan.is_cuda else None
@@ -316,21 +316,6 @@ def _pointers(held: list):
 def _data(x):
     """x's device pointer as it is (strides and all), or None."""
     return None if x is None else x.data_ptr()
-
-
-def _launch(library: str, entry: str, argtypes, dev, args) -> None:
-    """Call the C entry point `entry` of csrc/<library>.cu (its argtypes set
-    at the first call) on the device's current stream; raise on a CUDA
-    error."""
-    lib = load_library(library)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(*args, stream)
-    check(lib, code, f"{entry} launch")
 
 
 class _Projection(torch.autograd.Function):

@@ -168,8 +168,8 @@ def test_wide_grid_takes_f32_binning_in_both():
            "alive": np.ones(n, bool)}
     kw = dict(compact=128, kmax=8, ksmall=2, nlarge=16)
     tx, ty = _configs(**kw)[1].grid(w, h)
-    assert tx == 65 and not tblend.uses_packed_train(
-        _configs(packed_train=True, **kw)[1], tx)
+    assert tx == 65 and _configs(packed_train=True, **kw)[1].train_binning(
+        tx, ty) == "f32"
     (jf, ja), (tf, ta) = _both(feats, aux)
     outs = {}
     for packed in (False, True):

@@ -411,6 +411,30 @@ def test_slam_rgbd_end_to_end(sequence, tmp_path):
     assert res["trainer"].device.type == "cpu"
 
 
+@pytest.mark.parametrize("flags", [[], ["--packed-train", "on",
+                                       "--kanchor", "3"]])
+def test_slam_rgbd_exact_binning(sequence, tmp_path, flags):
+    """`--compact 0 --kmax 0` is the exact binning in the SLAM apps (the
+    JAX package has none): `common.raster_config`, which slam_rgbd,
+    slam_mono and slam_stereo share, drops the tiers, the packing and the
+    pre-compaction, also where the flags ask for them, and slam_rgbd trains
+    every iteration and evaluates on the exact binning."""
+    exact = ["--compact", "0", "--kmax", "0"] + flags
+    rc = common.resolve_configs(_args(common, exact), 10)[3]
+    assert rc.exact and rc.train_binning(*rc.grid(SEQ_W, SEQ_H)) == "exact"
+    assert (rc.ksmall, rc.nlarge, rc.packed_train, rc.kanchor) == (
+        0, 0, False, 0)
+    before = dict(tblend.train_binnings)
+    res = slam_rgbd.main(APP_ARGS + exact + ["--path", str(sequence),
+                                             "--out", str(tmp_path)])
+    assert res["trainer"].raster_config == rc
+    assert res["iterations"] == 10 and np.isfinite(res["psnr"])
+    assert tblend.train_binnings["exact"] >= before["exact"] + 10
+    for route in ("packed", "f32"):
+        assert tblend.train_binnings[route] == before[route]
+    assert not res["trainer"].eval_renderer().packed
+
+
 def test_slam_rgbd_refuses_unported(sequence, tmp_path):
     """The two flags the port once refused now run: slam_rgbd with
     --viewer-port on a free port serves frames while it maps (a client
