@@ -215,12 +215,17 @@ class Mapper:
     # --- main loop (reference: run() :523-795: keeps training after SLAM
     # shutdown until the iteration budget, then tail-optimizes) ---
     def run(self, max_iterations: int | None = None, idle_sleep: float = 0.002):
+        # the pop waits up to 10 ms for an operation, except after a pass
+        # that trained: then the loop has work, and takes only what is there
+        wait = True
         while not self.stopped:
             if max_iterations is not None and self.trainer.iteration >= max_iterations:
                 break
             tracing.peak("mapper.queue_depth_max", self.queue.qsize())
             with tracing.span("mapper.queue_wait"):
-                op = self.queue.pop(timeout=0.01)
+                op = self.queue.pop(timeout=0.01 if wait else 0.0)
+            if not wait:
+                tracing.count("mapper.pops_unwaited", 1)
             if op is not None:
                 tracing.count("mapper.ops", 1)
                 with tracing.span("mapper.apply_op"):
@@ -233,6 +238,7 @@ class Mapper:
                     break  # producer ended before enough keyframes arrived
                 continue
             m = self.trainer.train_iteration()
+            wait = m is None
             if (self.config.pose_refine_every
                     and self.trainer.iteration >= self.config.pose_refine_warmup
                     and self.trainer.iteration % self.config.pose_refine_every

@@ -1,7 +1,8 @@
 """The port's online mapper on the CPU: tests/test_mapper.py's six tests on
-the port's Mapper, Trainer, producers and protocol, and a parity test that
-feeds one synchronous operation stream (keyframes, pose updates, a loop
-closure and a scale refinement) into the JAX Mapper and the port's.
+the port's Mapper, Trainer, producers and protocol; the loop's pop, which
+waits only after a pass that did not train; and a parity test that feeds one
+synchronous operation stream (keyframes, pose updates, a loop closure and a
+scale refinement) into the JAX Mapper and the port's.
 
 Parity tolerances: keyframe poses, times of use and the sampler's counts
 equal (they are set from the stream, not computed); per-iteration losses
@@ -10,6 +11,8 @@ and decoder weights within 1e-5 after the run (f32 rounding of the same
 Adam updates). Densification stays out of the run: its keep-masks are
 random draws that differ between the packages.
 """
+
+import threading
 
 import jax
 import numpy as np
@@ -195,6 +198,71 @@ def test_pose_refine_on_arrival_runs_before_training():
     # configured step count
     assert [r[0] for r in refined] == [3, 4, 5]
     assert all(steps == 2 for _, steps in refined)
+
+
+def test_pop_waits_only_after_a_pass_that_did_not_train():
+    """Mapper.run's first pass waits up to 10 ms on the queue; a pass after
+    one that trained takes only what is there. Operations pushed before the
+    call and from another thread during it are applied in push order, one a
+    pass, the first two at the passes where a waiting pop applied them, and
+    every pass still trains one iteration."""
+    cam, kfs, trainer = _port_setup()
+    queue = MappingQueue()
+    SyntheticOracleProducer(
+        kfs, cam, queue,
+        sparse_points_fn=_sparse_fn(np.random.default_rng(7))).run()
+    mapper = Mapper(queue, trainer, cam,
+                    MapperConfig(min_num_initial_map_kfs=3))
+    mapper.run(max_iterations=3)  # three operations initialise, three train
+    assert mapper.initialized and not queue.has_operation()
+    timeouts, applied = [], []
+    pop, apply = queue.pop, mapper._apply_operation
+
+    def recording_pop(timeout=None):
+        timeouts.append(timeout)
+        return pop(timeout=timeout)
+
+    def recording_apply(op):
+        applied.append((op, len(timeouts)))
+        apply(op)
+
+    queue.pop = recording_pop
+    mapper._apply_operation = recording_apply
+    mapper.run(max_iterations=11)
+    assert trainer.iteration == 11 and not applied
+    assert timeouts == [0.01] + [0.0] * 7
+
+    ops = [MappingOperation(kind=OperationKind.LOCAL_MAPPING_BA,
+                            pose_updates={k: (np.array([1.0, 0, 0, 0]),
+                                              np.array([0.05 * k, 0.01, 0]))})
+           for k in (1, 2, 3)]
+    queue.push(ops[0])
+    queue.push(ops[1])
+    timeouts.clear()
+    iterate = trainer.train_iteration
+    trained = []
+    late = threading.Timer(0.0, queue.push, args=(ops[2],))
+
+    def train_iteration():
+        m = iterate()
+        trained.append(m is not None)
+        if len(trained) == 3:
+            late.start()  # partway through the call
+        if len(applied) == 3:
+            mapper.abort()
+        return m
+
+    trainer.train_iteration = train_iteration
+    mapper.run(max_iterations=211)  # the bound only guards a lost push
+    late.join(timeout=10)
+    assert [op for op, _ in applied] == ops
+    assert [at for _, at in applied[:2]] == [1, 2]
+    assert applied[2][1] > 3
+    assert all(trained) and len(trained) == len(timeouts)
+    assert trainer.iteration == 11 + len(trained)
+    assert timeouts == [0.01] + [0.0] * (len(timeouts) - 1)
+    np.testing.assert_allclose(trainer.scene.keyframes[3].trans,
+                               ops[2].pose_updates[3][1])
 
 
 def _stream_ops(protocol, rng):

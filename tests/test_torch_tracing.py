@@ -133,9 +133,11 @@ def test_profiled_runs_record_their_spans_and_counters(profiled):
     spans, counts = reg["spans"], reg["counts"]
     assert STEP_SPANS | RENDER_SPANS | MAPPER_SPANS <= set(spans)
     assert profiled["iterations"] == 17
-    # one wait a loop iteration: each pops once and trains once
+    # one pop a loop iteration: each pops once and trains once
     assert spans["mapper.queue_wait"]["calls"] == len(pops) == 17
     assert counts["mapper.ops"] == sum(pops) == 2
+    # every pass trains, so only the first pop of the call waits
+    assert counts["mapper.pops_unwaited"] == 16
     assert spans["mapper.apply_op"]["calls"] == 2
     assert counts["mapper.queue_depth_max"] == profiled["depth"] == 2
     assert spans["mapper.log"]["calls"] == 1
@@ -212,11 +214,14 @@ def test_idle_loop_records_its_sleep():
         mapper.run()
     stop.join(timeout=10)
     assert not stop.is_alive()
-    spans = tracing.read()["spans"]
+    reg = tracing.read()
+    spans = reg["spans"]
     tracing.reset()
     assert spans["mapper.idle"]["calls"] == spans["mapper.queue_wait"][
         "calls"] >= 1
     assert trainer.iteration == 0
+    # no pass trained, so every pop waited
+    assert reg["counts"].get("mapper.pops_unwaited", 0) == 0
 
 
 def test_updates_from_many_threads_are_not_lost():
